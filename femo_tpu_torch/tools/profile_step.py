@@ -1,0 +1,272 @@
+"""Where the time of the port's motor step goes, on one CUDA card.
+
+    python -m femo_tpu_torch.tools.profile_step [--refine 1 4] [--steps 5]
+        [--out chiprun_out/profile_step.json]
+
+For each refine level the step is built in f64 in the configuration of
+the f64 oracle (experiments/motor_latency_oracle.json), run once to warm,
+timed over `--steps` untraced warm steps (host clock, ending in a device
+sync), then traced for one warm step with torch.profiler (CPU + CUDA).
+During the traced step the port's layers run inside `record_function`
+ranges (the wrappers below, installed only by this tool).  It reports:
+
+- the device's busy time (the union of the intervals of kernels and
+  copies; the device-side copies of the `record_function` ranges are not
+  device work and are left out) and its idle share against the traced
+  step's wall time;
+- per layer, the host time inside its ranges and the device time of the
+  kernels that start inside the device-side copy of its ranges (both
+  inclusive: a solve holds its sweeps);
+- the device kernels by total time;
+- the bytes the sweep kernels stream (counted from the shapes they were
+  given) and their rate, beside a device-to-device copy's rate measured in
+  the same run.
+
+It prints a summary and writes everything to `--out` as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import functools
+import json
+import os
+import statistics
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+from .. import set_precision
+from ..fea.assemble import CompiledForm
+from ..models.motor.model import build_motor_jit_step
+from ..ops import bt_sweeps
+from ..ops.block_tridiag import (
+    BlockThomasFactor, BlockTridiagonalMatrix, BlockTridiagTemplate)
+
+ORACLE_CFG = dict(em_load_steps=3, mm_newton_iters=3, em_newton_iters=3,
+                  factorization="block_thomas", pcg_iters=8,
+                  design_space="edge_deltas")
+
+# range name -> (owner, attribute) of the function run inside it
+LAYERS = {
+    "assemble.jacobian": (CompiledForm, "matrix"),
+    "assemble.residual": (CompiledForm, "vector"),
+    "assemble.scalar": (CompiledForm, "scalar"),
+    "bt.fill": (BlockTridiagTemplate, "fill"),
+    "bt.factor": (BlockTridiagonalMatrix, "factor"),
+    "bt.transpose": (BlockTridiagonalMatrix, "_transposed"),
+    "bt.matvec": (BlockTridiagonalMatrix, "matvec"),
+    "bt.matvec_t": (BlockTridiagonalMatrix, "matvec_t"),
+    "bt.solve": (BlockThomasFactor, "solve"),
+    "sweeps.K1": (bt_sweeps, "fwd_sweep_cuda"),
+    "sweeps.K2": (bt_sweeps, "bwd_sweep_cuda"),
+}
+SWEEP_BLOCKS = {"sweeps.K1": 2, "sweeps.K2": 1}  # (B,B) blocks per step
+
+
+def _ranged(name, fn, calls, streamed):
+    blocks = SWEEP_BLOCKS.get(name)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            out = fn(*args, **kwargs)
+        calls[name] += 1
+        if blocks:
+            streamed[name] += blocks * args[0].numel() * args[0].itemsize
+        return out
+    return wrapped
+
+
+class layer_ranges:
+    """Context: run each layer of LAYERS inside a record_function range of
+    its name, count its calls, and count the bytes of (B,B) blocks the
+    sweeps stream."""
+
+    def __enter__(self):
+        self.saved = {k: getattr(o, a) for k, (o, a) in LAYERS.items()}
+        self.calls = {k: 0 for k in LAYERS}
+        self.streamed = {k: 0 for k in SWEEP_BLOCKS}
+        for k, (o, a) in LAYERS.items():
+            setattr(o, a, _ranged(k, self.saved[k], self.calls,
+                                  self.streamed))
+        return self
+
+    def __exit__(self, *exc):
+        for k, (o, a) in LAYERS.items():
+            setattr(o, a, self.saved[k])
+
+
+def _merge(intervals):
+    """Sorted disjoint intervals covering the union of `intervals`."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _union_us(intervals):
+    return sum(b - a for a, b in _merge(intervals))
+
+
+def _inside_us(kernels, ranges):
+    """Total duration of the (start, end) kernels that start inside the
+    union of `ranges`."""
+    merged = _merge(ranges)
+    starts = [a for a, _ in merged]
+    total = 0.0
+    for a, b in kernels:
+        i = bisect.bisect_right(starts, a) - 1
+        if i >= 0 and a < merged[i][1]:
+            total += b - a
+    return total
+
+
+def _sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def copy_rate_gbs(nbytes=2 << 30, reps=10):
+    """Device-to-device copy rate (read + write bytes / s), median."""
+    x = torch.empty(nbytes // 8, dtype=torch.float64, device="cuda")
+    y = torch.empty_like(x)
+    times = []
+    for _ in range(reps + 2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        y.copy_(x)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) * 1e-3)
+    del x, y
+    return 2 * nbytes / statistics.median(times[2:]) / 1e9
+
+
+def profile_refine(refine, steps):
+    t_build, (step, (dv0, iq0), info) = _sync_time(
+        lambda: build_motor_jit_step(refine=refine, device="cuda",
+                                     **ORACLE_CFG))
+    t_first, _ = _sync_time(lambda: step(dv0, iq0))
+    walls = [_sync_time(lambda: step(dv0, iq0))[0] for _ in range(steps)]
+
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with layer_ranges() as lr, torch.profiler.profile(activities=acts) as p:
+        t_traced, (loss, _) = _sync_time(lambda: step(dv0, iq0))
+    peak = torch.cuda.max_memory_allocated()
+    events = p.events()
+
+    span = lambda e: (e.time_range.start, e.time_range.end)
+    dev, annotated = [], {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in LAYERS or getattr(e, "is_user_annotation", False):
+            annotated.setdefault(e.name, []).append(span(e))
+        else:
+            dev.append(e)
+    busy_us = _union_us([span(e) for e in dev])
+    kernels = {}
+    for e in dev:
+        k = kernels.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += e.time_range.elapsed_us()
+    layers = {}
+    for e in events:
+        if e.name in LAYERS and e.device_type == DeviceType.CPU:
+            lay = layers.setdefault(e.name, [0, 0.0, 0.0])
+            lay[0] += 1
+            lay[1] += e.cpu_time_total
+    for name, lay in layers.items():
+        lay[2] = _inside_us([span(e) for e in dev], annotated.get(name, []))
+    dev_total_us = sum(v[1] for v in kernels.values())
+    sweep_us = {"sweeps.K1": sum(v[1] for n, v in kernels.items()
+                                 if "bt_fwd_kernel" in n),
+                "sweeps.K2": sum(v[1] for n, v in kernels.items()
+                                 if "bt_bwd_kernel" in n)}
+    sweep_rate = {k: lr.streamed[k] / (sweep_us[k] * 1e-6) / 1e9
+                  for k in sweep_us if sweep_us[k] > 0}
+    return {
+        "refine": refine, "cells": info["mesh"].n_cells, "bt": info["bt"],
+        "loss": float(loss), "build_s": t_build, "first_step_s": t_first,
+        "warm_step_s": walls, "warm_step_median_s": statistics.median(walls),
+        "traced_step_s": t_traced, "device_busy_s": busy_us * 1e-6,
+        "device_idle_share_of_traced": 1 - busy_us * 1e-6 / t_traced,
+        "device_event_total_s": dev_total_us * 1e-6,
+        "peak_device_mem_bytes": peak,
+        "layers": {k: {"calls": v[0], "host_s": v[1] * 1e-6,
+                       "device_s": v[2] * 1e-6}
+                   for k, v in sorted(layers.items())},
+        "kernels": [{"name": n, "calls": c, "device_s": us * 1e-6}
+                    for n, (c, us) in sorted(kernels.items(),
+                                             key=lambda kv: -kv[1][1])],
+        "sweep_bytes": lr.streamed, "sweep_device_s":
+            {k: v * 1e-6 for k, v in sweep_us.items()},
+        "sweep_rate_gbs": sweep_rate,
+    }
+
+
+def _summary(r, copy_gbs):
+    print(f"refine {r['refine']} ({r['cells']} cells, bt {r['bt']}): loss "
+          f"{r['loss']!r}; warm step median {r['warm_step_median_s']:.4f} s "
+          f"over {len(r['warm_step_s'])} "
+          f"({min(r['warm_step_s']):.4f}-{max(r['warm_step_s']):.4f}); "
+          f"traced {r['traced_step_s']:.4f} s, device busy "
+          f"{r['device_busy_s']:.4f} s, idle "
+          f"{100 * r['device_idle_share_of_traced']:.1f}% of the traced "
+          f"step; peak device memory "
+          f"{r['peak_device_mem_bytes'] / 2**30:.3f} GiB")
+    for k, v in r["layers"].items():
+        print(f"  layer {k:18s} calls {v['calls']:5d}  host "
+              f"{v['host_s']:.4f} s  device {v['device_s']:.4f} s")
+    for k in r["kernels"][:12]:
+        print(f"  kernel {k['device_s'] * 1e3:10.3f} ms {k['calls']:6d} x "
+              f"{k['name'][:90]}")
+    for k, gbs in r["sweep_rate_gbs"].items():
+        print(f"  {k}: {r['sweep_bytes'][k] / 1e9:.3f} GB of blocks in "
+              f"{r['sweep_device_s'][k]:.4f} s = {gbs:.1f} GB/s, "
+              f"{100 * gbs / copy_gbs:.2f}% of the measured copy rate")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--refine", type=float, nargs="+", default=[1, 4])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default="chiprun_out/profile_step.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    set_precision("float64")
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    copy_gbs = copy_rate_gbs()
+    print(f"device-to-device copy rate: {copy_gbs:.1f} GB/s (read + write)")
+    results = []
+    for refine in args.refine:
+        r = profile_refine(refine, args.steps)
+        _summary(r, copy_gbs)
+        results.append(r)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"card": card, "torch": torch.__version__,
+                   "copy_rate_gbs": copy_gbs, "runs": results}, f, indent=1)
+    print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

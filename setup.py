@@ -10,4 +10,7 @@ setup(
     packages=find_packages(exclude=["tests", "examples"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy"],
+    # femo_tpu_torch, the PyTorch/CUDA port (found by find_packages), needs
+    # torch; its CUDA kernels are built with nvcc at first use
+    extras_require={"torch": ["torch"]},
 )
