@@ -7,13 +7,14 @@ Phases, one result line each; any failure raises and the script exits
 non-zero without the final line:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail.
-2. build: the native host library (g++) and the block-Thomas sweep kernels
-   (nvcc, sm_90a) from the sources in this checkout.
+2. build: the native host library (g++) and both CUDA sources, the
+   block-Thomas sweeps (bt_sweeps.cu) and the SpMV kernels (spmv.cu),
+   with nvcc for sm_90a from this checkout, the compilers started at once.
 3. kernels: K1/K2 against their plain PyTorch versions on the card —
    synthetic blocks (nb in {1, 3, 9}, B in {128, 256}, f32 and f64, plus
    the unscaled B=256 system in f64) and the real refine-1 mesh-motion and
    EM factors — and their times at the refine-1 mesh-motion shapes
-   (median of CUDA-event timings).
+   (median of CUDA-event timings) beside their bounds.
 4. the motor optimization step at refine 1, f64, on the card, in the f64
    oracle's configuration: loss against experiments/motor_latency_oracle
    .json, the gradient, each sweep kernel's launch count, and agreement
@@ -21,6 +22,20 @@ non-zero without the final line:
 5. the same step at refine 4 (the reference's largest dof class), then
    K1/K2 against the plain sweeps on its mesh-motion (B=512) and EM
    factors, with their times there.
+6. SpMV: K4/K4T (element), K3 (ELL) and K5 (RCM band) against their plain
+   versions (f64 1e-14, f32 1e-6) and each other on the W1 operator at
+   nel=260; the port of experiments/pallas_spmv.py's self-test with the
+   K3/K5 counts reset just before it; times of each kernel, its plain
+   version and torch.sparse.mm on the CSR, beside the bound: CUDA events
+   around single calls, and the profiler's device time per call, which
+   leaves out the host time between launches.
+7. W1, the Poisson source-control optimization, at nel=260 in f64 through
+   the graph API (build_fea, FEAModel, Simulator.run, objective_gradient)
+   with the K4/K4T counts reset just before and read just after: loss and
+   gradient against the JAX oracle (oracles/w1_poisson_nel260.npz), the
+   launches against BiCGStab's iterations, wall times, and the
+   manufactured-solution error norm; then SLSQP(maxiter=3) at nel=32 and
+   the card against CPU tensors at nel=64.
 
 It prints a JSON line describing the kernels, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -29,20 +44,32 @@ It prints a JSON line describing the kernels, and last
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 import femo_tpu_torch
 from femo_tpu_torch import native
 from femo_tpu_torch.models.motor.model import (
     build_motor_jit_step, edge_delta_design_space)
 from femo_tpu_torch.models.motor.pde import source_tables
-from femo_tpu_torch.ops import bt_sweeps
+from femo_tpu_torch.fea.assemble import compile_form
+from femo_tpu_torch.fea.space import Function
+from femo_tpu_torch.fea.utils import errorNorm
+from femo_tpu_torch.graph.model import FEAModel
+from femo_tpu_torch.graph.optimizer import OptimizationProblem, SLSQP
+from femo_tpu_torch.graph.simulator import Simulator
+from femo_tpu_torch.models.poisson import build_fea
+from femo_tpu_torch.ops import bt_sweeps, spmv
 from femo_tpu_torch.ops.block_tridiag import BlockTridiagonalMatrix
+from femo_tpu_torch.solvers.krylov import cg
+from femo_tpu_torch.solvers.linear import KrylovFactorization
 
 # experiments/motor_latency_oracle.json (the JAX package, f64, CPU)
 ORACLE = {1: 28.709006394182538, 4: 30.388014626154067}
@@ -75,17 +102,25 @@ def phase_device():
 
 
 def phase_build():
+    """The native host library (g++) and both CUDA sources (nvcc), each
+    compiler started at once in its own thread."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    native.get_lib()
-    t1 = time.perf_counter()
-    bt_sweeps.get_lib()
-    t2 = time.perf_counter()
-    ptxas = [ln.strip() for ln in bt_sweeps.build_log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
-    print(f"build: native g++ {t1 - t0:.2f} s, {bt_sweeps.SRC} with nvcc "
-          f"{' '.join(bt_sweeps.NVCC_FLAGS)} {t2 - t1:.2f} s")
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(timed, m.get_lib)
+                for m in (native, bt_sweeps, spmv)]
+        t_native, t_bt, t_spmv = (f.result() for f in futs)
+    print(f"build ({time.perf_counter() - t0:.2f} s in all): native g++ "
+          f"{t_native:.2f} s; nvcc {' '.join(bt_sweeps.NVCC_FLAGS)}: "
+          f"{bt_sweeps.SRC} {t_bt:.2f} s, {spmv.SRC} {t_spmv:.2f} s")
+    for log in (bt_sweeps.build_log, spmv.build_log):
+        for ln in log.splitlines():
+            if "registers" in ln or "Compiling entry" in ln:
+                print(f"  ptxas: {ln.strip()}")
 
 
 def synthetic(nb, B, dtype, seed, scaled=True):
@@ -160,6 +195,27 @@ def cuda_ms(fn, reps=50, warm=5):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=10):
+    """Device time of one call in ms: the summed durations of the kernels
+    and copies that `reps` calls run, traced with torch.profiler, over
+    reps.  Unlike cuda_ms it leaves out the host time between launches,
+    which is most of a call whose kernels take microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    if not us > 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / reps / 1e3
+
+
 def jacobian_factor(info, which, dv0, iq0, em_load_steps):
     """A Jacobian the step factors, block-Thomas factored on the card:
     "mm" at half the boundary displacement of dv0, "em" the first EM
@@ -200,17 +256,28 @@ def time_sweeps(fac, bb, label):
     """Kernel and plain times (median of 50 CUDA-event timings), ms."""
     m = fac.mat
     z = bt_sweeps.fwd_sweep_plain(fac.Sinv, m.L, bb)
-    t = {
-        "K1": cuda_ms(lambda: bt_sweeps.fwd_sweep_cuda(fac.Sinv, m.L, bb)),
-        "K1_plain": cuda_ms(
-            lambda: bt_sweeps.fwd_sweep_plain(fac.Sinv, m.L, bb)),
-        "K2": cuda_ms(lambda: bt_sweeps.bwd_sweep_cuda(fac.C, z)),
-        "K2_plain": cuda_ms(lambda: bt_sweeps.bwd_sweep_plain(fac.C, z)),
+    fns = {
+        "K1": lambda: bt_sweeps.fwd_sweep_cuda(fac.Sinv, m.L, bb),
+        "K1_plain": lambda: bt_sweeps.fwd_sweep_plain(fac.Sinv, m.L, bb),
+        "K2": lambda: bt_sweeps.bwd_sweep_cuda(fac.C, z),
+        "K2_plain": lambda: bt_sweeps.bwd_sweep_plain(fac.C, z),
     }
-    nb, B = fac.Sinv.shape[:2]
+    t = {k: cuda_ms(fn) for k, fn in fns.items()}
+    t.update({f"{k}_device": device_ms(fn) for k, fn in fns.items()})
+    nb, B = bb.shape
+    s = bb.element_size()
+    # each input read once, each output written once; 2 B^2 flops a block
+    t["K1_bound"] = bound_ms((2 * nb * B * B + 2 * nb * B) * s,
+                             4 * nb * B * B, bb.dtype)
+    t["K2_bound"] = bound_ms((nb * B * B + 2 * nb * B) * s,
+                             2 * nb * B * B, bb.dtype)
     print(f"  time, {label} nb={nb} B={B} f64 (median of 50, CUDA events): "
-          f"K1 {t['K1']:.4f} ms vs plain {t['K1_plain']:.4f} ms; "
-          f"K2 {t['K2']:.4f} ms vs plain {t['K2_plain']:.4f} ms")
+          f"K1 {t['K1']:.4f} ms vs plain {t['K1_plain']:.4f} ms, bound "
+          f"{t['K1_bound'][0]:.4f} ms; K2 {t['K2']:.4f} ms vs plain "
+          f"{t['K2_plain']:.4f} ms, bound {t['K2_bound'][0]:.4f} ms")
+    print(f"  device time per call (profiler, 10 calls): K1 "
+          f"{t['K1_device']:.4f} ms vs plain {t['K1_plain_device']:.4f} ms; "
+          f"K2 {t['K2_device']:.4f} ms vs plain {t['K2_plain_device']:.4f} ms")
     return t
 
 
@@ -318,6 +385,389 @@ def phase_refine4(err):
         time_sweeps(fac, bb, f"refine-4 {which}")
 
 
+# ---------------------------------------------------------------------------
+# W1: the Poisson source-control optimization through the graph API, and
+# the SpMV kernels K3/K4/K5 on its operator
+# ---------------------------------------------------------------------------
+
+# The JAX package's f64 values (CPU), written to oracles/w1_poisson_nel260.npz
+# by `JAX_PLATFORMS=cpu PYTHONPATH=. python oracles/w1_poisson_oracle.py`.
+# The gradient (135,200 values) is read from that file; the scalars are:
+W1_NEL, W1_OPT_NEL, W1_CHECK_NEL = 260, 32, 64
+W1_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "oracles", "w1_poisson_nel260.npz")
+W1_LOSS = 1.3669991806257774e-05  # l2_functional at f = 0.5, nel=260
+W1_ERROR_NORM = 5.192500444336616e-07  # manufactured solution, nel=260
+W1_KRYLOV_ITERS = {"run": [397], "objective_gradient": [411]}  # BiCGStab
+W1_SLSQP_OBJ = [1.3668314815810345e-05, 1.0959285162131653e-05,
+                3.298265080312179e-06, 1.976006143168327e-06]  # nel=32
+SPMV_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and
+# operations/s outside the tensor cores by dtype
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound_ms(nbytes, ops, dtype):
+    """(least time in ms, "bytes" | "operations"): the larger of the bytes
+    over the memory rate and the operations over the peak rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / PEAK_OPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def reset(counts):
+    for k in counts:
+        counts[k] = 0
+
+
+def check_rel(label, got, want, tol):
+    r = rel(got, want)
+    print(f"  {label}: rel L2 {r:.3e} (tol {tol:.0e})")
+    if not r <= tol:
+        raise AssertionError(f"{label}: {r} > {tol}")
+    return float((got - want).abs().max())
+
+
+def w1_stiffness(nel):
+    """The W1 state Jacobian (the CG1 stiffness) assembled on the card."""
+    fea, d = build_fea(nel=nel, device="cuda")
+    form = fea.states_dict["u"]["residual_form"]
+    return compile_form(form).matrix(form.values(), "u"), d
+
+
+def torch_csr(m):
+    """A scipy CSR matrix as a torch CSR tensor on the card, in canonical
+    form (sorted, distinct column indices in each row, which torch's
+    invariant check demands)."""
+    m = m.tocsr(copy=True)
+    m.sum_duplicates()
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(m.indptr, dtype=torch.int64),
+        torch.as_tensor(m.indices, dtype=torch.int64),
+        torch.as_tensor(m.data), size=m.shape, device="cuda",
+        check_invariants=True)
+
+
+def spmv_selftest(A, ell, band, bw, perm, x, b):
+    """The port of experiments/pallas_spmv.py::_selftest on the card: the
+    ELL operator, the element matvec and the RCM band against the
+    element matvec, then CG through the ELL operator shifted to SPD.
+    Returns the CG iterations."""
+    y_ref = A.matvec(x)
+    rel_tol = SPMV_TOL[torch.float64]
+    for label, y in (("ELL", ell.matvec(x)),
+                     ("banded (RCM order)",
+                      spmv.banded_spmv(band, x[perm], bw))):
+        want = y_ref[perm] if label.startswith("banded") else y_ref
+        r = rel(y, want)
+        if not r <= rel_tol:
+            raise AssertionError(f"self-test {label}: {r}")
+    res = cg(lambda v: ell.matvec(v) + v, b, rtol=1e-10)
+    r = float(torch.linalg.norm(b - (ell.matvec(res.x) + res.x))
+              / torch.linalg.norm(b))
+    print(f"  self-test: CG through the ELL operator, {res.iters} "
+          f"iterations, converged {res.converged}, residual {r:.3e}")
+    if not (res.converged and r < 1e-8):
+        raise AssertionError("CG through the ELL operator failed")
+    return res.iters
+
+
+def phase_spmv():
+    """K3/K4/K4T/K5 against their plain versions (f64 and f32) and each
+    other on the nel=260 W1 operator; the ported self-test with the K3
+    and K5 counts reset just before it; times of kernel, plain and
+    torch.sparse.mm on the CSR (median of 50 CUDA-event timings)."""
+    t0 = time.perf_counter()
+    A, d = w1_stiffness(W1_NEL)
+    b0 = A.blocks[0]
+    n = A.shape[0]
+    ne, nr, nc = b0.A.shape
+    csr = A.to_scipy_csr()
+    ell = spmv.ELLOperator(A)
+    band, bw, perm = spmv.banded_from_element_matrix(A)
+    perm_t = torch.as_tensor(perm, dtype=torch.int64, device="cuda")
+    k = ell.vals.shape[1]
+    print(f"SpMV kernels on the W1 stiffness, nel={W1_NEL}: n={n}, "
+          f"{ne} elements ({nr}x{nc}), nnz={csr.nnz}, ELL k={k}, RCM "
+          f"bandwidth b={bw} (band {band.numel() * 8 / 1e6:.1f} MB in f64); "
+          f"set-up {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    x64 = torch.as_tensor(rng.standard_normal(n), device="cuda")
+    err = {"K3": 0.0, "K4": 0.0, "K4T": 0.0, "K5": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        tol = SPMV_TOL[dtype]
+        Ae, x = b0.A.to(dtype), x64.to(dtype)
+        vals, bnd = ell.vals.to(dtype), band.to(dtype)
+        out = {
+            "K4": (spmv.element_spmv_cuda(Ae, b0.plan, x),
+                   spmv.element_spmv_plain(Ae, b0.rows, b0.cols, x, n)),
+            "K4T": (spmv.element_rspmv_cuda(Ae, b0.plan, x),
+                    spmv.element_rspmv_plain(Ae, b0.rows, b0.cols, x, n)),
+            "K3": (spmv.ell_spmv_cuda(vals, ell.cols, x),
+                   spmv.ell_spmv_plain(vals, ell.cols, x)),
+            "K5": (spmv.banded_spmv_cuda(bnd, x[perm_t].contiguous(), bw),
+                   spmv.banded_spmv_plain(bnd, x[perm_t], bw)),
+        }
+        torch.cuda.synchronize()
+        name = str(dtype)[6:]
+        for kern, (y_k, y_p) in out.items():
+            e = check_rel(f"{kern} vs plain, {name}", y_k, y_p, tol)
+            if dtype == torch.float64:
+                err[kern] = e
+        y4 = out["K4"][0]
+        check_rel(f"K3 vs K4, {name}", out["K3"][0], y4, tol)
+        check_rel(f"K5 vs K4 (RCM order), {name}", out["K5"][0], y4[perm_t],
+                  tol)
+    # symmetric operator: K4T and K4 compute the same product
+    check_rel("K4T vs K4, float64", spmv.element_rspmv_cuda(
+        b0.A, b0.plan, x64), spmv.element_spmv_cuda(b0.A, b0.plan, x64),
+        SPMV_TOL[torch.float64])
+
+    reset(spmv.launches)
+    cg_iters = spmv_selftest(A, ell, band, bw, perm_t, x64,
+                             torch.as_tensor(rng.standard_normal(n),
+                                             device="cuda"))
+    path = {k: spmv.launches[k] for k in ("K3", "K5")}
+    print(f"  self-test launches: K3 {path['K3']} (CG: 1 + {cg_iters} "
+          f"iterations + 2 checks), K5 {path['K5']}")
+    if path != {"K3": cg_iters + 1 + 2, "K5": 1}:
+        raise AssertionError(f"self-test launches {path}")
+
+    A_lib, At_lib = torch_csr(csr), torch_csr(csr.T.tocsr())
+    P_lib = torch_csr(csr[perm][:, perm])
+    xp = x64[perm_t].contiguous()
+    plain = {
+        "K4": lambda: spmv.element_spmv_plain(b0.A, b0.rows, b0.cols, x64,
+                                              n),
+        "K4T": lambda: spmv.element_rspmv_plain(b0.A, b0.rows, b0.cols,
+                                                x64, n),
+        "K3": lambda: spmv.ell_spmv_plain(ell.vals, ell.cols, x64),
+        "K5": lambda: spmv.banded_spmv_plain(band, xp, bw),
+    }
+    kern = {
+        "K4": lambda: spmv.element_spmv_cuda(b0.A, b0.plan, x64),
+        "K4T": lambda: spmv.element_rspmv_cuda(b0.A, b0.plan, x64),
+        "K3": lambda: spmv.ell_spmv_cuda(ell.vals, ell.cols, x64),
+        "K5": lambda: spmv.banded_spmv_cuda(band, xp, bw),
+    }
+    lib = {
+        "K4": lambda: torch.sparse.mm(A_lib, x64[:, None]),
+        "K4T": lambda: torch.sparse.mm(At_lib, x64[:, None]),
+        "K3": lambda: torch.sparse.mm(A_lib, x64[:, None]),
+        "K5": lambda: torch.sparse.mm(P_lib, xp[:, None]),
+    }
+    vec = 2 * n * 8  # x read once, y written once
+    nbytes = {
+        "K4": ne * nr * nc * 8 + ne * (nr + nc) * 4 + vec,
+        "K3": ell.vals.numel() * (8 + 4) + vec,
+        "K5": band.numel() * 8 + vec,
+    }
+    nbytes["K4T"] = nbytes["K4"]
+    ops = {"K4": 2 * ne * nr * nc, "K4T": 2 * ne * nr * nc,
+           "K3": 2 * ell.vals.numel(), "K5": 2 * band.numel()}
+    saved = dict(spmv.launches)
+    t = {}
+    for name in ("K4", "K4T", "K3", "K5"):
+        check_rel(f"torch.sparse.mm vs {name}", lib[name]()[:, 0],
+                  kern[name](), SPMV_TOL[torch.float64])
+        t[name] = dict(ms=cuda_ms(kern[name]), plain_ms=cuda_ms(plain[name]),
+                       library_ms=cuda_ms(lib[name]),
+                       device_ms=device_ms(kern[name]),
+                       plain_device_ms=device_ms(plain[name]),
+                       library_device_ms=device_ms(lib[name]),
+                       bound=bound_ms(nbytes[name], ops[name],
+                                      torch.float64))
+        r = t[name]
+        print(f"  time {name}, f64 (median of 50, CUDA events): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"torch.sparse.mm {r['library_ms']:.4f} ms; device time per "
+              f"call (profiler, 10 calls): kernel {r['device_ms']:.4f} ms, "
+              f"plain {r['plain_device_ms']:.4f} ms, torch.sparse.mm "
+              f"{r['library_device_ms']:.4f} ms; bound {r['bound'][0]:.4f} "
+              f"ms ({nbytes[name] / 1e6:.2f} MB)")
+    spmv.launches.update(saved)  # comparisons and timings do not count
+    return t, err, path
+
+
+class krylov_log:
+    """Context: record the Krylov iterations of every LinearSolver solve,
+    by kind ("K4" for solve, whose matvec is K4; "K4T" for solve_t)."""
+
+    def __enter__(self):
+        self.saved = (KrylovFactorization.solve, KrylovFactorization.solve_t)
+        self.solves = []
+
+        def wrap(fn, kind):
+            def wrapped(fac, b):
+                x = fn(fac, b)
+                self.solves.append((kind, fac.method,
+                                    int(fac.last_result.iters)))
+                return x
+            return wrapped
+
+        KrylovFactorization.solve = wrap(self.saved[0], "K4")
+        KrylovFactorization.solve_t = wrap(self.saved[1], "K4T")
+        return self
+
+    def __exit__(self, *exc):
+        KrylovFactorization.solve, KrylovFactorization.solve_t = self.saved
+
+    def take(self):
+        out, self.solves = self.solves, []
+        return out
+
+
+def matvecs(solves):
+    """BiCGStab's matvecs: the initial residual, then 2 per iteration."""
+    out = {"K4": 0, "K4T": 0}
+    for kind, method, iters in solves:
+        if method != "bicgstab":
+            raise AssertionError(f"expected BiCGStab solves, got {method}")
+        out[kind] += 1 + 2 * iters
+    return out
+
+
+def w1_model(nel, device):
+    """The main path of examples/run_poisson_opt.py, through the port."""
+    fea, d = build_fea(nel=nel, device=device)
+    model = FEAModel(fea=[fea])
+    model.create_input("f", shape=d["W"].n_dofs, val=0.5)
+    model.add_design_variable("f")
+    model.add_objective("l2_functional", scaler=1e5)
+    return Simulator(model), fea, d
+
+
+def synced(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_w1():
+    """W1 at nel=260, f64, on the card: Simulator.run and
+    objective_gradient with the K4/K4T counts reset just before and read
+    just after, gated on the JAX oracle; a warm objective_gradient; the
+    manufactured-solution forward solve."""
+    oracle = np.load(W1_ORACLE)
+    if float(oracle["loss"]) != W1_LOSS:
+        raise AssertionError("oracles/w1_poisson_nel260.npz does not hold "
+                             "the loss written here")
+    t0 = time.perf_counter()
+    sim, fea, d = w1_model(W1_NEL, "cuda")
+    method = fea.linear_solver.resolve_method(d["V"].n_dofs)
+    print(f"W1 at nel={W1_NEL}, f64, cuda: {d['V'].n_dofs} CG1 dofs, "
+          f"{d['W'].n_dofs} DG0 controls, LinearSolver('auto') -> {method} "
+          f"+ {fea.linear_solver.pc}, rtol {fea.linear_solver.rtol:.0e}; "
+          f"build {time.perf_counter() - t0:.2f} s")
+    reset(spmv.launches)
+    with krylov_log() as log:
+        t_run, _ = synced(sim.run)
+        at_run = dict(spmv.launches)
+        run_solves = log.take()
+        t_cold, (val, grads, _) = synced(
+            lambda: sim.objective_gradient("l2_functional", ["f"]))
+        grad_solves = log.take()
+        launches = dict(spmv.launches)
+        t_warm, (val_w, grads_w, _) = synced(
+            lambda: sim.objective_gradient("l2_functional", ["f"]))
+        warm_solves = log.take()
+    want = matvecs(run_solves + grad_solves)
+    print(f"  Krylov iterations: run {[s[2] for s in run_solves]} "
+          f"(JAX {W1_KRYLOV_ITERS['run']}), objective_gradient "
+          f"{[(s[0], s[2]) for s in grad_solves]} (JAX adjoint "
+          f"{W1_KRYLOV_ITERS['objective_gradient']}), warm "
+          f"{[(s[0], s[2]) for s in warm_solves]}")
+    print(f"  launches: run K4 {at_run['K4']} K4T {at_run['K4T']}; run + "
+          f"objective_gradient K4 {launches['K4']} K4T {launches['K4T']} "
+          f"(expected {want['K4']} and {want['K4T']}: 1 initial residual "
+          f"+ 2 per iteration)")
+    if not (launches["K4"] == want["K4"] > 0
+            and launches["K4T"] == want["K4T"] > 0):
+        raise AssertionError(f"K4/K4T launches {launches}, want {want}")
+    g = grads["f"]
+    g_ref = torch.as_tensor(oracle["grad"], device="cuda")
+    rl = abs(float(val) - W1_LOSS) / W1_LOSS
+    rg = rel(g, g_ref)
+    rl_w = abs(float(val_w) - float(val)) / abs(float(val))
+    rg_w = rel(grads_w["f"], g)
+    print(f"  loss {float(val)!r}, oracle {W1_LOSS!r}, rel {rl:.3e} (tol "
+          f"1e-8); gradient ({g.numel()}) rel L2 {rg:.3e} (tol 1e-6); warm "
+          f"call: loss rel {rl_w:.3e}, gradient rel {rg_w:.3e}")
+    if not (rl <= 1e-8 and rg <= 1e-6 and bool(torch.isfinite(g).all())
+            and rl_w <= 1e-10 and rg_w <= 1e-8):
+        raise AssertionError("W1 loss or gradient is wrong")
+    print(f"  wall time: run {t_run:.3f} s, objective_gradient cold "
+          f"{t_cold:.3f} s, warm {t_warm:.3f} s")
+
+    src = lambda x: np.sin(np.pi * x[0]) * np.sin(np.pi * x[1])  # noqa
+    fea_m, dm = build_fea(nel=W1_NEL, device="cuda")
+    t_m, _ = synced(lambda: fea_m.solve(
+        "u", {"f": Function(dm["W"]).interpolate(src).array}))
+    err = errorNorm(dm["u_ex"], dm["u"])
+    r = abs(err - W1_ERROR_NORM) / W1_ERROR_NORM
+    # u agrees to ~1e-12 of its norm; the error norm is ~2e-5 of that norm,
+    # so a relative bar of 1e-5 on it is ~2e-10 of the solution's norm
+    print(f"  manufactured solution: errorNorm {err!r}, JAX "
+          f"{W1_ERROR_NORM!r}, rel {r:.3e} (tol 1e-5; < 5e-3); solve "
+          f"{t_m:.3f} s")
+    if not (err < 5e-3 and r <= 1e-5):
+        raise AssertionError("manufactured-solution error norm is wrong")
+    return launches, dict(run=t_run, cold=t_cold, warm=t_warm)
+
+
+def phase_w1_slsqp():
+    """SLSQP(maxiter=3) on the W1 model at nel=32 (scipy's SLSQP keeps
+    about 10.5 n^2 values of work arrays: 1.4 TiB at nel=260's 135,200
+    controls, in either package)."""
+    sim, fea, d = w1_model(W1_OPT_NEL, "cuda")
+    sim.run()
+    prob = OptimizationProblem(sim, "poisson_opt")
+    t, res = synced(lambda: SLSQP(prob, ftol=1e-13, maxiter=3).solve())
+    objs = [h["obj"] for h in prob.history]
+    print(f"W1 SLSQP(maxiter=3) at nel={W1_OPT_NEL} ({d['W'].n_dofs} "
+          f"controls, {fea.linear_solver.resolve_method(d['V'].n_dofs)}): "
+          f"nit {res.nit}, {t:.3f} s; objective after each evaluation "
+          f"{objs}; JAX {W1_SLSQP_OBJ}")
+    if len(objs) != len(W1_SLSQP_OBJ) or max(
+            abs(a - b) / abs(b) for a, b in zip(objs, W1_SLSQP_OBJ)) > 1e-8:
+        raise AssertionError("SLSQP objectives disagree with the oracle")
+
+
+def phase_w1_card_vs_cpu():
+    """W1 at nel=64 on CUDA tensors (K4/K4T) and on CPU tensors (plain)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sim, fea, d = w1_model(W1_CHECK_NEL, dev)
+        sim.run()
+        val, grads, _ = sim.objective_gradient("l2_functional", ["f"])
+        out[dev] = (float(val), grads["f"].cpu())
+    rl = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    rg = rel(out["cuda"][1], out["cpu"][1])
+    print(f"W1 card vs CPU tensors at nel={W1_CHECK_NEL} "
+          f"({fea.linear_solver.resolve_method(d['V'].n_dofs)}): loss rel "
+          f"{rl:.3e} (tol 1e-10), gradient rel L2 {rg:.3e} (tol 1e-8)")
+    if not (rl <= 1e-10 and rg <= 1e-8):
+        raise AssertionError("W1 card and CPU runs disagree")
+
+
+def kernel_entry(key, name, source, replaces, launches, err, t):
+    """One kernel's entry of the kernels line.  ms, plain_ms and
+    library_ms are medians of CUDA-event timings of single calls; the
+    *device_ms keys are the profiler's device time per call, without the
+    host time between launches."""
+    ms, by = t["bound"]
+    return {"name": f"{name} ({key})", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": ms,
+            "bound_by": by, "library_ms": t["library_ms"],
+            "lib_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "plain_device_ms": t["plain_device_ms"],
+            "library_device_ms": t["library_device_ms"]}
+
+
 def main():
     femo_tpu_torch.set_precision("float64")
     phase_device()
@@ -329,14 +779,29 @@ def main():
     phase_refine4(err)
     print(f"kernels vs plain on the step's factors (refine 1 and 4): max "
           f"|kernel - plain| K1 {err['K1']:.3e}, K2 {err['K2']:.3e}")
-    src = "femo_tpu_torch/csrc/bt_sweeps.cu"
-    print(json.dumps({"kernels": [
-        {"name": f"{name} ({k})", "route": "cuda", "source": src,
-         "replaces": f"femo_tpu/ops/pallas_bt.py:{line}",
-         "launches": launches[k], "max_abs_err": err[k], "ms": t[k],
-         "plain_ms": t[f"{k}_plain"]}
+    t_spmv, err_spmv, selftest = phase_spmv()
+    w1_launches, _ = phase_w1()
+    phase_w1_slsqp()
+    phase_w1_card_vs_cpu()
+
+    bt, sp = "femo_tpu_torch/csrc/bt_sweeps.cu", "femo_tpu_torch/csrc/spmv.cu"
+    ps = "experiments/pallas_spmv.py"
+    rows = [kernel_entry(
+        k, name, bt, f"femo_tpu/ops/pallas_bt.py:{line}", launches[k],
+        err[k], dict(ms=t[k], plain_ms=t[f"{k}_plain"], library_ms=None,
+                     device_ms=t[f"{k}_device"],
+                     plain_device_ms=t[f"{k}_plain_device"],
+                     library_device_ms=None, bound=t[f"{k}_bound"]))
         for k, name, line in (("K1", "bt_fwd_sweep", 60),
-                              ("K2", "bt_bwd_sweep", 76))]}))
+                              ("K2", "bt_bwd_sweep", 76))]
+    rows += [kernel_entry(k, name, sp, f"{ps}:{line}", n, err_spmv[k],
+                          t_spmv[k])
+             for k, name, line, n in (
+                 ("K3", "ell_spmv", 75, selftest["K3"]),
+                 ("K4", "element_spmv", 121, w1_launches["K4"]),
+                 ("K4T", "element_spmv transposed", 121, w1_launches["K4T"]),
+                 ("K5", "banded_spmv", 217, selftest["K5"]))]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

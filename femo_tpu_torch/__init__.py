@@ -8,6 +8,6 @@ CUDA kernels under `csrc/`, built with nvcc at first use.
 This package never imports jax or femo_tpu: the card's machine has no jax.
 """
 
-from .config import config, set_precision
+from .config import config, get_device, set_precision
 
 __version__ = "0.1.0"

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import config
+from .config import config, get_device
 from .mesh.mesh import Mesh
 
 
@@ -29,9 +29,27 @@ def mesh_from_jax(jmesh) -> Mesh:
     return mesh
 
 
-def step_inputs(dv, iq, device="cpu"):
-    """(dv, iq) as tensors of the working dtype on `device` (from numpy
-    arrays or anything np.asarray takes, e.g. jax arrays)."""
-    return tuple(torch.as_tensor(np.array(a, np.float64),
-                                 dtype=config.dtype, device=device)
-                 for a in (dv, iq))
+def array_from_jax(a, device=None) -> torch.Tensor:
+    """A tensor of the working dtype on `device` (default `config.device`)
+    from a numpy array or anything np.asarray takes, e.g. a jax array or
+    a femo_tpu Function's `.array`."""
+    return torch.as_tensor(np.array(a, np.float64), dtype=config.dtype,
+                           device=get_device(device))
+
+
+def step_inputs(dv, iq, device=None):
+    """(dv, iq) as tensors of the working dtype on `device` (default
+    `config.device`)."""
+    return tuple(array_from_jax(a, device) for a in (dv, iq))
+
+
+def function_from_jax(jfunc, space):
+    """A port Function on `space` (the port's counterpart of the JAX
+    Function's space) with the JAX Function's name and dof values."""
+    from .fea.space import Function
+
+    arr = np.asarray(jfunc.array)
+    if arr.shape != (space.n_dofs,):
+        raise ValueError(f"{jfunc.name}: {arr.shape} dofs, the space has "
+                         f"{space.n_dofs}")
+    return Function(space, jfunc.name, array_from_jax(arr, space.device))

@@ -12,6 +12,9 @@ triangles — what the motor forms reach).
 * Jacobians: `torch.func.jacfwd` of that residual -> per-entity dense
   blocks (ne, nr, nc) ("element-matrix" form).
 * The scatter is `index_add` (JAX: `jax.ops.segment_sum`).
+* `ElementMatrix.matvec/rmatvec` run the element SpMV kernels K4/K4T on
+  CUDA tensors (ops/spmv.py); each term keeps the kernels' row-owner
+  maps of its pattern, built at first use.
 
 Not ported (raise NotImplementedError): exterior-facet terms, Hessian
 tables (Hermite elements), manifold cells, and the chunked entity loop.
@@ -33,6 +36,7 @@ from ..elements.element import (
 )
 from ..elements.quadrature import cell_rule
 from ..mesh.mesh import Mesh
+from ..ops.spmv import ElementSpMVPlan, element_matvec
 from .forms import FormDef, Integral, Q, QR
 from .space import FunctionSpace
 
@@ -114,6 +118,7 @@ class _Term:
     def __init__(self, integral: Integral, form: "CompiledForm"):
         self.integral = integral
         self.form = form
+        self._spmv_plans = {}  # (test, wrt) -> ElementSpMVPlan
         mesh = form.mesh
         self.domain = integral.domain
         spaces = form.spaces  # name -> FunctionSpace (test as "__test__")
@@ -394,6 +399,17 @@ class _Term:
             return torch.cat([self.gdofs0[name], self.gdofs1[name]], dim=1)
         return self.gdofs0[name]
 
+    def spmv_plan(self, test_name: str, wrt: str) -> ElementSpMVPlan:
+        """The element SpMV plan of this term's (test, wrt) block pattern,
+        kept for every matrix assembled from it (its maps are built at
+        the first CUDA matvec)."""
+        key = (test_name, wrt)
+        if key not in self._spmv_plans:
+            self._spmv_plans[key] = ElementSpMVPlan(
+                self._rows(test_name), self._rows(wrt),
+                self.tabs[test_name].space.n_dofs, self.tabs[wrt].space.n_dofs)
+        return self._spmv_plans[key]
+
     def scalar(self, values: dict) -> torch.Tensor:
         kern = self.make_entity_kernel(None, list(values))
         return torch.sum(self._vmapped(kern, values))
@@ -424,7 +440,8 @@ class _Term:
         if self.domain == "interior_facet":
             ne = Ae.shape[0]  # (ne, 2, nr, 2, nc)
             Ae = Ae.reshape(ne, Ae.shape[1] * Ae.shape[2], -1)
-        return Ae, self._rows(test_name), self._rows(wrt)
+        # the SpMV kernels read A_e row-major: one copy per assembly
+        return Ae.contiguous(), self._rows(test_name), self._rows(wrt)
 
 
 # ---------------------------------------------------------------------------
@@ -437,14 +454,73 @@ class MatBlock:
     A: object  # (ne, nr, nc) tensor, or a host placeholder for patterns
     rows: object  # (ne, nr)
     cols: object  # (ne, nc)
+    plan: ElementSpMVPlan | None = None  # K4's maps of (rows, cols)
 
 
 class ElementMatrix:
-    """Sparse matrix in unassembled element form: a list of MatBlocks."""
+    """Sparse matrix in unassembled element form: a list of MatBlocks.
+
+    SpMV is gather -> per-element product -> scatter, one K4 (matvec) or
+    K4T (rmatvec) launch per block on CUDA tensors, the plain PyTorch
+    version on CPU tensors (ops/spmv.py)."""
 
     def __init__(self, blocks: list[MatBlock], n_rows: int, n_cols: int):
         self.blocks = blocks
         self.shape = (n_rows, n_cols)
+        for b in blocks:
+            if b.plan is None and isinstance(b.rows, torch.Tensor):
+                b.plan = ElementSpMVPlan(b.rows, b.cols, n_rows, n_cols)
+
+    def matvec(self, x):
+        return element_matvec(self.blocks, x, self.shape)
+
+    def rmatvec(self, y):
+        """Transpose matvec A^T y (adjoint solves)."""
+        return element_matvec(self.blocks, y, self.shape, transpose=True)
+
+    def diagonal(self):
+        A0 = self.blocks[0].A
+        d = torch.zeros(self.shape[0], dtype=A0.dtype, device=A0.device)
+        for b in self.blocks:
+            if b.rows.shape[1] != b.cols.shape[1]:
+                continue
+            diag = torch.diagonal(b.A, dim1=1, dim2=2)
+            same = b.rows == b.cols
+            d = d.index_add(0, b.rows.reshape(-1),
+                            (diag * same).reshape(-1))
+        return d
+
+    def to_dense(self):
+        A0 = self.blocks[0].A
+        M = torch.zeros(self.shape, dtype=A0.dtype, device=A0.device)
+        for b in self.blocks:
+            ne, nr, nc = b.A.shape
+            ridx = b.rows[:, :, None].expand(ne, nr, nc).reshape(-1)
+            cidx = b.cols[:, None, :].expand(ne, nr, nc).reshape(-1)
+            M = M.index_put((ridx, cidx), b.A.reshape(-1), accumulate=True)
+        return M
+
+    def to_scipy_csr(self):
+        """Host CSR, built as the JAX package builds it (the same COO
+        order, so scipy sums duplicates in the same order)."""
+        import scipy.sparse as sp
+
+        def host(a):
+            return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+                else np.asarray(a)
+
+        rows, cols, vals = [], [], []
+        for b in self.blocks:
+            ne, nr, nc = b.A.shape
+            rows.append(np.broadcast_to(
+                host(b.rows)[:, :, None], (ne, nr, nc)).ravel())
+            cols.append(np.broadcast_to(
+                host(b.cols)[:, None, :], (ne, nr, nc)).ravel())
+            vals.append(host(b.A).ravel())
+        M = sp.coo_matrix(
+            (np.concatenate(vals), (np.concatenate(rows),
+                                    np.concatenate(cols))), shape=self.shape)
+        return M.tocsr()
 
 
 # ---------------------------------------------------------------------------
@@ -495,7 +571,8 @@ class CompiledForm:
         if self.form.test is None:
             raise ValueError("matrix assembly needs a test space")
         vals = {k: values[k] for k in self.all_names}
-        blocks = [MatBlock(*t.matrix_blocks(vals, "__test__", wrt))
+        blocks = [MatBlock(*t.matrix_blocks(vals, "__test__", wrt),
+                           plan=t.spmv_plan("__test__", wrt))
                   for t in self.terms]
         ncols = self.form.coeffs[wrt].space.n_dofs
         return ElementMatrix(blocks, self.form.test.n_dofs, ncols)
@@ -523,3 +600,29 @@ def compile_form(form: FormDef) -> CompiledForm:
     if form._assembler is None:
         form._assembler = CompiledForm(form)
     return form._assembler
+
+
+# ---------------------------------------------------------------------------
+# Public assembly API (the form's current coefficient arrays, updated by
+# `values`)
+# ---------------------------------------------------------------------------
+
+
+def _form_values(form: FormDef, values: dict | None) -> dict:
+    v = form.values()
+    if values:
+        v.update(values)
+    return v
+
+
+def assemble_scalar(form: FormDef, values: dict | None = None):
+    return compile_form(form).scalar(_form_values(form, values))
+
+
+def assemble_vector(form: FormDef, values: dict | None = None):
+    return compile_form(form).vector(_form_values(form, values))
+
+
+def assemble_matrix(form: FormDef, wrt: str,
+                    values: dict | None = None) -> ElementMatrix:
+    return compile_form(form).matrix(_form_values(form, values), wrt)

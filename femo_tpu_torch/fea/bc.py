@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, get_device
 from .space import FunctionSpace
 
 
@@ -31,8 +31,10 @@ class DirichletBC:
             np.asarray(value, float), (len(self.dofs),)).copy()
 
 
-def bc_arrays(bcs, n_dofs: int, device="cpu"):
-    """Combine BCs into (free_mask (n,) bool, bc_values (n,)) tensors."""
+def bc_arrays(bcs, n_dofs: int, device=None):
+    """Combine BCs into (free_mask (n,) bool, bc_values (n,)) tensors on
+    `device` (default `config.device`, the card)."""
+    device = get_device(device)
     mask = np.ones(n_dofs, bool)
     vals = np.zeros(n_dofs)
     for bc in bcs or ():

@@ -21,7 +21,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, get_device
 from .space import Function, FunctionSpace
 
 
@@ -67,10 +67,14 @@ class GlobalCoefficient:
     """A named scalar or small-tensor parameter entering integrands
     uniformly (not a field), e.g. the motor's tag-indexed source tables."""
 
-    def __init__(self, name: str, value=0.0, device="cpu"):
+    def __init__(self, name: str, value=0.0, device=None):
         self.name = name
         self.array = torch.as_tensor(np.array(value, np.float64),
-                                     dtype=config.dtype, device=device)
+                                     dtype=config.dtype,
+                                     device=get_device(device))
+
+    def rename(self, name, *_):
+        self.name = name
 
 
 class QR:
@@ -155,3 +159,9 @@ class FormDef:
             target[f.name] = f
         self.test: FunctionSpace | None = test
         self._assembler = None  # cache, built by the assemble module
+
+    def values(self) -> dict[str, torch.Tensor]:
+        """Current coefficient arrays (defaults for assembly)."""
+        out = {k: f.array for k, f in self.coeffs.items()}
+        out.update({k: f.array for k, f in self.globals.items()})
+        return out

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...config import config
+from ...config import config, get_device
 from ...fea.assemble import compile_form
 from ...fea.bc import DirichletBC, bc_arrays
 from ...fea.forms import GlobalCoefficient
@@ -79,7 +79,7 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
                          refactor_every: int = 1,
                          device_mesh=None,
                          design_space: str = "edge_deltas", mesh=None,
-                         device="cpu"):
+                         device=None):
     """The motor opt iteration: (shape_dv, iq) -> (loss, (g_dv, g_iq)).
 
     Both implicit solves use the block-Thomas factorization with the CUDA
@@ -91,7 +91,8 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
 
     The design space is "edge_deltas": one (dx, dy) per magnet-ring
     interface node.  Only factorization="block_thomas" without
-    device_mesh is ported.
+    device_mesh is ported.  `device` defaults to `config.device` (the
+    card).
     """
     if design_space != "edge_deltas":
         raise ValueError(f"design_space={design_space!r}: only "
@@ -101,7 +102,7 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
                          "'block_thomas' is ported")
     if device_mesh is not None:
         raise ValueError("device_mesh (sharded assembly) is not ported")
-    device = torch.device(device)
+    device = get_device(device)
     dt = config.dtype
     if mesh is None:
         mesh = create_motor_mesh(refine)

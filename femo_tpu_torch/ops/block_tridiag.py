@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..config import get_device
 from .bt_sweeps import bt_sweep_solve
 
 
@@ -136,8 +137,10 @@ class BlockTridiagTemplate:
     index_add per Newton iteration."""
 
     def __init__(self, emat, free=None, block: int | None = None,
-                 device="cpu"):
+                 device=None):
         from .. import native
+
+        device = get_device(device)
 
         n = emat.shape[0]
         self.n = n

@@ -1,14 +1,19 @@
-"""Where the time of the port's motor step goes, on one CUDA card.
+"""Where the time of the port's motor step and W1 optimization step goes,
+on one CUDA card.
 
-    python -m femo_tpu_torch.tools.profile_step [--refine 1 4] [--steps 5]
-        [--out chiprun_out/profile_step.json]
+    python -m femo_tpu_torch.tools.profile_step [--refine 1 4] [--w1 260]
+        [--steps 5] [--out FILE]
 
-For each refine level the step is built in f64 in the configuration of
-the f64 oracle (experiments/motor_latency_oracle.json), run once to warm,
-timed over `--steps` untraced warm steps (host clock, ending in a device
-sync), then traced for one warm step with torch.profiler (CPU + CUDA).
-During the traced step the port's layers run inside `record_function`
-ranges (the wrappers below, installed only by this tool).  It reports:
+For each refine level the motor step is built in f64 in the
+configuration of the f64 oracle (experiments/motor_latency_oracle.json);
+for each `--w1` nel the W1 Poisson model is built in f64 (f = 0.5,
+objective l2_functional, `Simulator.run()` once) and its step is one
+`objective_gradient`, the call SLSQP makes each iteration.  Each step is
+run once to warm, timed over `--steps` untraced warm steps (host clock,
+ending in a device sync), then traced for one warm step with
+torch.profiler (CPU + CUDA).  During the traced step the port's layers
+run inside `record_function` ranges (the wrappers below, installed only
+by this tool).  It reports:
 
 - the device's busy time (the union of the intervals of kernels and
   copies; the device-side copies of the `record_function` ranges are not
@@ -41,10 +46,14 @@ from torch.autograd import DeviceType
 
 from .. import set_precision
 from ..fea.assemble import CompiledForm
+from ..graph.model import FEAModel
+from ..graph.simulator import Simulator
 from ..models.motor.model import build_motor_jit_step
-from ..ops import bt_sweeps
+from ..models.poisson import build_fea
+from ..ops import bt_sweeps, spmv
 from ..ops.block_tridiag import (
     BlockThomasFactor, BlockTridiagonalMatrix, BlockTridiagTemplate)
+from ..solvers.linear import KrylovFactorization, LinearSolver
 
 ORACLE_CFG = dict(em_load_steps=3, mm_newton_iters=3, em_newton_iters=3,
                   factorization="block_thomas", pcg_iters=8,
@@ -64,6 +73,17 @@ LAYERS = {
     "sweeps.K1": (bt_sweeps, "fwd_sweep_cuda"),
     "sweeps.K2": (bt_sweeps, "bwd_sweep_cuda"),
 }
+# the W1 step's layers
+W1_LAYERS = {
+    "assemble.jacobian": (CompiledForm, "matrix"),
+    "assemble.residual": (CompiledForm, "vector"),
+    "assemble.scalar": (CompiledForm, "scalar"),
+    "linear.factor": (LinearSolver, "factor"),
+    "krylov.solve": (KrylovFactorization, "solve"),
+    "krylov.solve_t": (KrylovFactorization, "solve_t"),
+    "spmv.K4": (spmv, "element_spmv_cuda"),
+    "spmv.K4T": (spmv, "element_rspmv_cuda"),
+}
 SWEEP_BLOCKS = {"sweeps.K1": 2, "sweeps.K2": 1}  # (B,B) blocks per step
 
 
@@ -82,21 +102,24 @@ def _ranged(name, fn, calls, streamed):
 
 
 class layer_ranges:
-    """Context: run each layer of LAYERS inside a record_function range of
-    its name, count its calls, and count the bytes of (B,B) blocks the
-    sweeps stream."""
+    """Context: run each layer of `layers` (LAYERS, the motor's, unless
+    given) inside a record_function range of its name, count its calls,
+    and count the bytes of (B,B) blocks the sweeps stream."""
+
+    def __init__(self, layers=None):
+        self.layers = LAYERS if layers is None else layers
 
     def __enter__(self):
-        self.saved = {k: getattr(o, a) for k, (o, a) in LAYERS.items()}
-        self.calls = {k: 0 for k in LAYERS}
+        self.saved = {k: getattr(o, a) for k, (o, a) in self.layers.items()}
+        self.calls = {k: 0 for k in self.layers}
         self.streamed = {k: 0 for k in SWEEP_BLOCKS}
-        for k, (o, a) in LAYERS.items():
+        for k, (o, a) in self.layers.items():
             setattr(o, a, _ranged(k, self.saved[k], self.calls,
                                   self.streamed))
         return self
 
     def __exit__(self, *exc):
-        for k, (o, a) in LAYERS.items():
+        for k, (o, a) in self.layers.items():
             setattr(o, a, self.saved[k])
 
 
@@ -153,18 +176,19 @@ def copy_rate_gbs(nbytes=2 << 30, reps=10):
     return 2 * nbytes / statistics.median(times[2:]) / 1e9
 
 
-def profile_refine(refine, steps):
-    t_build, (step, (dv0, iq0), info) = _sync_time(
-        lambda: build_motor_jit_step(refine=refine, device="cuda",
-                                     **ORACLE_CFG))
-    t_first, _ = _sync_time(lambda: step(dv0, iq0))
-    walls = [_sync_time(lambda: step(dv0, iq0))[0] for _ in range(steps)]
+def trace_step(step, steps, layers):
+    """Warm `step` once, time `steps` untraced warm calls, then trace one
+    with each of `layers` inside its range.  Returns the measurements and
+    the traced call's result."""
+    t_first, _ = _sync_time(step)
+    walls = [_sync_time(step)[0] for _ in range(steps)]
 
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with layer_ranges() as lr, torch.profiler.profile(activities=acts) as p:
-        t_traced, (loss, _) = _sync_time(lambda: step(dv0, iq0))
+    with layer_ranges(layers) as lr, \
+            torch.profiler.profile(activities=acts) as p:
+        t_traced, out = _sync_time(step)
     peak = torch.cuda.max_memory_allocated()
     events = p.events()
 
@@ -173,7 +197,7 @@ def profile_refine(refine, steps):
     for e in events:
         if e.device_type != DeviceType.CUDA:
             continue
-        if e.name in LAYERS or getattr(e, "is_user_annotation", False):
+        if e.name in layers or getattr(e, "is_user_annotation", False):
             annotated.setdefault(e.name, []).append(span(e))
         else:
             dev.append(e)
@@ -183,24 +207,17 @@ def profile_refine(refine, steps):
         k = kernels.setdefault(e.name, [0, 0.0])
         k[0] += 1
         k[1] += e.time_range.elapsed_us()
-    layers = {}
+    lays = {}
     for e in events:
-        if e.name in LAYERS and e.device_type == DeviceType.CPU:
-            lay = layers.setdefault(e.name, [0, 0.0, 0.0])
+        if e.name in layers and e.device_type == DeviceType.CPU:
+            lay = lays.setdefault(e.name, [0, 0.0, 0.0])
             lay[0] += 1
             lay[1] += e.cpu_time_total
-    for name, lay in layers.items():
+    for name, lay in lays.items():
         lay[2] = _inside_us([span(e) for e in dev], annotated.get(name, []))
     dev_total_us = sum(v[1] for v in kernels.values())
-    sweep_us = {"sweeps.K1": sum(v[1] for n, v in kernels.items()
-                                 if "bt_fwd_kernel" in n),
-                "sweeps.K2": sum(v[1] for n, v in kernels.items()
-                                 if "bt_bwd_kernel" in n)}
-    sweep_rate = {k: lr.streamed[k] / (sweep_us[k] * 1e-6) / 1e9
-                  for k in sweep_us if sweep_us[k] > 0}
     return {
-        "refine": refine, "cells": info["mesh"].n_cells, "bt": info["bt"],
-        "loss": float(loss), "build_s": t_build, "first_step_s": t_first,
+        "first_step_s": t_first,
         "warm_step_s": walls, "warm_step_median_s": statistics.median(walls),
         "traced_step_s": t_traced, "device_busy_s": busy_us * 1e-6,
         "device_idle_share_of_traced": 1 - busy_us * 1e-6 / t_traced,
@@ -208,18 +225,58 @@ def profile_refine(refine, steps):
         "peak_device_mem_bytes": peak,
         "layers": {k: {"calls": v[0], "host_s": v[1] * 1e-6,
                        "device_s": v[2] * 1e-6}
-                   for k, v in sorted(layers.items())},
+                   for k, v in sorted(lays.items())},
         "kernels": [{"name": n, "calls": c, "device_s": us * 1e-6}
                     for n, (c, us) in sorted(kernels.items(),
                                              key=lambda kv: -kv[1][1])],
-        "sweep_bytes": lr.streamed, "sweep_device_s":
-            {k: v * 1e-6 for k, v in sweep_us.items()},
-        "sweep_rate_gbs": sweep_rate,
-    }
+        "sweep_bytes": lr.streamed,
+    }, out
+
+
+def profile_refine(refine, steps):
+    t_build, (step, (dv0, iq0), info) = _sync_time(
+        lambda: build_motor_jit_step(refine=refine, device="cuda",
+                                     **ORACLE_CFG))
+    r, (loss, _) = trace_step(lambda: step(dv0, iq0), steps, LAYERS)
+    sweep_us = {"sweeps.K1": sum(k["device_s"] for k in r["kernels"]
+                                 if "bt_fwd_kernel" in k["name"]) * 1e6,
+                "sweeps.K2": sum(k["device_s"] for k in r["kernels"]
+                                 if "bt_bwd_kernel" in k["name"]) * 1e6}
+    r["sweep_device_s"] = {k: v * 1e-6 for k, v in sweep_us.items()}
+    r["sweep_rate_gbs"] = {k: r["sweep_bytes"][k] / (sweep_us[k] * 1e-6)
+                           / 1e9 for k in sweep_us if sweep_us[k] > 0}
+    r.update(name=f"motor refine {refine}", refine=refine,
+             cells=info["mesh"].n_cells, bt=info["bt"], loss=float(loss),
+             build_s=t_build)
+    return r
+
+
+def w1_simulator(nel, device=None):
+    """The W1 model of examples/run_poisson_opt.py (f = 0.5), run once."""
+    fea, d = build_fea(nel=nel, device=device)
+    model = FEAModel(fea=[fea])
+    model.create_input("f", shape=d["W"].n_dofs, val=0.5)
+    model.add_design_variable("f")
+    model.add_objective("l2_functional", scaler=1e5)
+    sim = Simulator(model)
+    sim.run()
+    return sim, fea, d
+
+
+def profile_w1(nel, steps):
+    t_build, (sim, fea, d) = _sync_time(lambda: w1_simulator(nel))
+    r, (val, _, _) = trace_step(
+        lambda: sim.objective_gradient("l2_functional", ["f"]), steps,
+        W1_LAYERS)
+    r.update(name=f"W1 nel={nel}", nel=nel, cells=d["mesh"].n_cells,
+             dofs=d["V"].n_dofs, controls=d["W"].n_dofs,
+             method=fea.linear_solver.resolve_method(d["V"].n_dofs),
+             loss=float(val), build_s=t_build)
+    return r
 
 
 def _summary(r, copy_gbs):
-    print(f"refine {r['refine']} ({r['cells']} cells, bt {r['bt']}): loss "
+    print(f"{r['name']} ({r['cells']} cells): loss "
           f"{r['loss']!r}; warm step median {r['warm_step_median_s']:.4f} s "
           f"over {len(r['warm_step_s'])} "
           f"({min(r['warm_step_s']):.4f}-{max(r['warm_step_s']):.4f}); "
@@ -234,7 +291,7 @@ def _summary(r, copy_gbs):
     for k in r["kernels"][:12]:
         print(f"  kernel {k['device_s'] * 1e3:10.3f} ms {k['calls']:6d} x "
               f"{k['name'][:90]}")
-    for k, gbs in r["sweep_rate_gbs"].items():
+    for k, gbs in r.get("sweep_rate_gbs", {}).items():
         print(f"  {k}: {r['sweep_bytes'][k] / 1e9:.3f} GB of blocks in "
               f"{r['sweep_device_s'][k]:.4f} s = {gbs:.1f} GB/s, "
               f"{100 * gbs / copy_gbs:.2f}% of the measured copy rate")
@@ -242,7 +299,10 @@ def _summary(r, copy_gbs):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--refine", type=float, nargs="+", default=[1, 4])
+    ap.add_argument("--refine", type=float, nargs="*", default=[1, 4],
+                    help="motor refine levels (none: no motor step)")
+    ap.add_argument("--w1", type=int, nargs="*", default=[],
+                    help="W1 mesh sizes nel")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out/profile_step.json")
     args = ap.parse_args(argv)
@@ -257,8 +317,10 @@ def main(argv=None):
     copy_gbs = copy_rate_gbs()
     print(f"device-to-device copy rate: {copy_gbs:.1f} GB/s (read + write)")
     results = []
-    for refine in args.refine:
-        r = profile_refine(refine, args.steps)
+    runs = ([lambda v=v: profile_refine(v, args.steps) for v in args.refine]
+            + [lambda v=v: profile_w1(v, args.steps) for v in args.w1])
+    for run in runs:
+        r = run()
         _summary(r, copy_gbs)
         results.append(r)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

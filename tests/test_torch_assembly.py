@@ -43,8 +43,7 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300)
 
 
-def _forms(FS, Fn, GC, mod, BH, mesh, tables, device=None):
-    kw = {} if device is None else {"device": device}
+def _forms(FS, Fn, GC, mod, BH, mesh, tables, **kw):
     Vmm = FS(mesh, ("CG", 1), ncomp=2, **kw)
     Vem = FS(mesh, ("CG", 1), **kw)
     uhat, uhat_bc, A_z = Fn(Vmm, "uhat"), Fn(Vmm, "uhat_bc"), Fn(Vem, "A_z")
@@ -120,7 +119,8 @@ def test_function_space_dofmaps_match():
     jm = jcreate_mesh(0.5)
     for ncomp in (1, 2):
         jV = JSpace(jm, ("CG", 1), ncomp=ncomp)
-        V = FunctionSpace(mesh_from_jax(jm), ("CG", 1), ncomp=ncomp)
+        V = FunctionSpace(mesh_from_jax(jm), ("CG", 1), ncomp=ncomp,
+                          device="cpu")
         np.testing.assert_array_equal(V.dofmap, jV.dofmap)
         np.testing.assert_array_equal(V.scalar_dof_coords,
                                       jV.scalar_dof_coords)

@@ -71,11 +71,14 @@ def case(request):
             JBH()), "A_z", Vem
     cf = jcompile(form)
     jfree, _ = jbc([JDirichletBC(jV, 0.0, where=_on_rim)], jV.n_dofs)
-    V = FunctionSpace(mesh_from_jax(jmesh), ("CG", 1), ncomp=jV.ncomp)
-    free, _ = bc_arrays([DirichletBC(V, 0.0, where=_on_rim)], V.n_dofs)
+    V = FunctionSpace(mesh_from_jax(jmesh), ("CG", 1), ncomp=jV.ncomp,
+                      device="cpu")
+    free, _ = bc_arrays([DirichletBC(V, 0.0, where=_on_rim)], V.n_dofs,
+                        device="cpu")
     np.testing.assert_array_equal(free.numpy(), np.asarray(jfree))
     jtpl = JTemplate(cf.matrix_pattern(wrt), free=np.asarray(jfree))
-    tpl = BlockTridiagTemplate(cf.matrix_pattern(wrt), free=free.numpy())
+    tpl = BlockTridiagTemplate(cf.matrix_pattern(wrt), free=free.numpy(),
+                               device="cpu")
     blocks = cf.matrix_blocks_jit(wrt)({k: vals[k] for k in cf.all_names})
     jmat = jtpl.matrix(blocks)
     tmat = tpl.matrix([(torch.as_tensor(np.array(A)), None, None)

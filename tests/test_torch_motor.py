@@ -49,7 +49,7 @@ def steps():
 def _both(steps, dv, iq):
     jl, (jg, jgi) = steps["jstep"](jnp.asarray(dv), jnp.asarray(iq))
     before = dict(bt_sweeps.launches)
-    tl, (tg, tgi) = steps["tstep"](*step_inputs(dv, iq))
+    tl, (tg, tgi) = steps["tstep"](*step_inputs(dv, iq, device="cpu"))
     assert bt_sweeps.launches == before  # CPU tensors: plain sweeps
     jgrad = np.concatenate([np.asarray(jg), [float(jgi)]])
     tgrad = np.concatenate([tg.numpy(), [float(tgi)]])
@@ -102,16 +102,18 @@ def test_dv0_is_the_basis_displacement_on_the_interface(steps):
 @pytest.mark.parametrize("design_space", ["basis", "ffd"])
 def test_unported_design_space_raises(design_space):
     with pytest.raises(ValueError, match="edge_deltas"):
-        build_motor_jit_step(refine=0.5, design_space=design_space)
+        build_motor_jit_step(refine=0.5, design_space=design_space,
+                             device="cpu")
 
 
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="block_thomas"):
-        build_motor_jit_step(refine=0.5, factorization="lu")
+        build_motor_jit_step(refine=0.5, factorization="lu", device="cpu")
     with pytest.raises(ValueError, match="device_mesh"):
-        build_motor_jit_step(refine=0.5, device_mesh=object())
+        build_motor_jit_step(refine=0.5, device_mesh=object(),
+                             device="cpu")
     with pytest.raises(ValueError, match="refactor_every"):
-        build_motor_jit_step(refine=0.5, refactor_every=3)
+        build_motor_jit_step(refine=0.5, refactor_every=3, device="cpu")
 
 
 def _run(code):

@@ -1,5 +1,6 @@
 """The step profiler's layer ranges (femo_tpu_torch/tools/profile_step.py),
-on CPU tensors at refine 0.5: every layer runs inside a range of its
+on CPU tensors, for the motor step at refine 0.5 and the W1
+objective_gradient at nel=6: every layer runs inside a range of its
 name as often as the step calls it, and leaving the context restores the
 port's functions.  The device-side numbers need the card."""
 
@@ -11,8 +12,10 @@ from femo_tpu_torch.fea.assemble import CompiledForm
 from femo_tpu_torch.models.motor.model import build_motor_jit_step
 from femo_tpu_torch.ops import bt_sweeps
 from femo_tpu_torch.ops.block_tridiag import BlockTridiagonalMatrix
+from femo_tpu_torch.solvers.linear import LinearSolver
 from femo_tpu_torch.tools.profile_step import (
-    LAYERS, ORACLE_CFG, _inside_us, _union_us, layer_ranges)
+    LAYERS, ORACLE_CFG, W1_LAYERS, _inside_us, _union_us, layer_ranges,
+    w1_simulator)
 
 torch.set_num_threads(1)
 
@@ -60,6 +63,25 @@ def test_layer_ranges_reach_the_profiler():
         mat.factor_t().solve(torch.ones(64, dtype=torch.float64))
     names = [e.name for e in p.events() if e.name in LAYERS]
     assert sorted(names) == ["bt.factor", "bt.solve", "bt.transpose"]
+
+
+@pytest.mark.parametrize("method", ["dense", "bicgstab"])
+def test_w1_layer_ranges_count_objective_gradient(method):
+    """At the converged warm start of run() the forward Newton takes no
+    step: one Jacobian, one factorization, one adjoint solve."""
+    sim, fea, _ = w1_simulator(6, device="cpu")
+    op = fea.states_dict["u"]["op"]
+    op.linear_solver = LinearSolver(method=method)
+    saved = {k: getattr(o, a) for k, (o, a) in W1_LAYERS.items()}
+    with layer_ranges(W1_LAYERS) as lr:
+        sim.objective_gradient("l2_functional", ["f"])
+    krylov = int(method == "bicgstab")
+    assert lr.calls == {
+        "assemble.jacobian": 1, "assemble.residual": 2,
+        "assemble.scalar": 1, "linear.factor": 1, "krylov.solve": 0,
+        "krylov.solve_t": krylov, "spmv.K4": 0, "spmv.K4T": 0}
+    for k, (o, a) in W1_LAYERS.items():
+        assert getattr(o, a) is saved[k], k
 
 
 @pytest.mark.parametrize("intervals, busy", [
