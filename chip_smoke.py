@@ -11,17 +11,21 @@ non-zero without the final line:
    block-Thomas sweeps (bt_sweeps.cu) and the SpMV kernels (spmv.cu),
    with nvcc for sm_90a from this checkout, the compilers started at once.
 3. kernels: K1/K2 against their plain PyTorch versions on the card —
-   synthetic blocks (nb in {1, 3, 9}, B in {128, 256}, f32 and f64, plus
-   the unscaled B=256 system in f64) and the real refine-1 mesh-motion and
-   EM factors — and their times at the refine-1 mesh-motion shapes
-   (median of CUDA-event timings) beside their bounds.
+   synthetic blocks (nb in {1, 2, 3, 9}, B in {128, 160, 256, 512}, f32
+   and f64, plus the unscaled B=256 system in f64) and the real refine-1
+   mesh-motion and EM factors, each kernel launched twice and required to
+   give the same bits — and their times at the refine-1 mesh-motion shapes
+   (median of CUDA-event timings, and the profiler's device time) beside
+   their bounds, with the launch geometry and the time per dependent
+   phase.
 4. the motor optimization step at refine 1, f64, on the card, in the f64
    oracle's configuration: loss against experiments/motor_latency_oracle
    .json, the gradient, each sweep kernel's launch count, and agreement
    with the same step on CPU tensors (plain sweeps).
 5. the same step at refine 4 (the reference's largest dof class), then
    K1/K2 against the plain sweeps on its mesh-motion (B=512) and EM
-   factors, with their times there.
+   (B=256) factors, with their times there; these are in the kernels line
+   too.
 6. SpMV: K4/K4T (element), K3 (ELL) and K5 (RCM band) against their plain
    versions (f64 1e-14, f32 1e-6) and each other on the W1 operator at
    nel=260; the port of experiments/pallas_spmv.py's self-test with the
@@ -160,19 +164,26 @@ def cond(mat):
 
 
 def check_sweeps(fac, bb, label, err):
-    """Kernel vs plain for K1, K2 and the whole solve; returns rel err."""
+    """Kernel vs plain for K1, K2 and the whole solve, and a second launch
+    of each kernel bit for bit against the first; returns rel err."""
     m = fac.mat
     z_k = bt_sweeps.fwd_sweep_cuda(fac.Sinv, m.L, bb)
+    z_k2 = bt_sweeps.fwd_sweep_cuda(fac.Sinv, m.L, bb)
     z_p = bt_sweeps.fwd_sweep_plain(fac.Sinv, m.L, bb)
     x_k = bt_sweeps.bwd_sweep_cuda(fac.C, z_p)
+    x_k2 = bt_sweeps.bwd_sweep_cuda(fac.C, z_p)
     x_p = bt_sweeps.bwd_sweep_plain(fac.C, z_p)
     x_solve = bt_sweeps.bt_sweep_solve(fac.Sinv, m.L, fac.C, bb)
     torch.cuda.synchronize()
     r = max(rel(z_k, z_p), rel(x_k, x_p), rel(x_solve, x_p))
     tol = SWEEP_TOL[bb.dtype]
-    print(f"  {label}: rel L2 {r:.3e} (tol {tol:.0e})")
+    same = torch.equal(z_k, z_k2) and torch.equal(x_k, x_k2)
+    print(f"  {label}: rel L2 {r:.3e} (tol {tol:.0e}), second launch "
+          f"bit-identical {same}")
     if not r <= tol:
         raise AssertionError(f"{label}: kernel disagrees with plain, {r}")
+    if not same:
+        raise AssertionError(f"{label}: two launches differ")
     if err is not None:
         err["K1"] = max(err["K1"], float((z_k - z_p).abs().max()))
         err["K2"] = max(err["K2"], float((x_k - x_p).abs().max()))
@@ -199,21 +210,25 @@ def device_ms(fn, reps=10):
     """Device time of one call in ms: the summed durations of the kernels
     and copies that `reps` calls run, traced with torch.profiler, over
     reps.  Unlike cuda_ms it leaves out the host time between launches,
-    which is most of a call whose kernels take microseconds."""
+    which is most of a call whose kernels take microseconds.  A trace that
+    shows no device work at all (the profiler missed it) is taken again,
+    up to three times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    if not us > 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / reps / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+        if us > 0:
+            return us / reps / 1e3
+        print("  (the profiler saw no device time; tracing again)")
+    raise AssertionError("the profiler saw no device time in 3 traces")
 
 
 def jacobian_factor(info, which, dv0, iq0, em_load_steps):
@@ -253,7 +268,11 @@ def check_real_factors(info, dv0, iq0, refine, err):
 
 
 def time_sweeps(fac, bb, label):
-    """Kernel and plain times (median of 50 CUDA-event timings), ms."""
+    """Kernel and plain times, ms: the median of 50 CUDA-event timings of
+    one call, and the profiler's device time per call (the kernel's own
+    time plus the fill of its output with the not-yet-written mark), with
+    the bounds, the launch geometry and the device time per dependent
+    phase (2 nb - 1 for K1, nb - 1 for K2)."""
     m = fac.mat
     z = bt_sweeps.fwd_sweep_plain(fac.Sinv, m.L, bb)
     fns = {
@@ -278,14 +297,29 @@ def time_sweeps(fac, bb, label):
     print(f"  device time per call (profiler, 10 calls): K1 "
           f"{t['K1_device']:.4f} ms vs plain {t['K1_plain_device']:.4f} ms; "
           f"K2 {t['K2_device']:.4f} ms vs plain {t['K2_plain_device']:.4f} ms")
+    phases = {"K1": 2 * nb - 1, "K2": max(nb - 1, 1)}
+    for k in ("K1", "K2"):
+        plan = bt_sweeps.sweep_plan(k, nb, B, bb.dtype,
+                                     bt_sweeps._sms(bb.device.index))
+        t[f"{k}_geometry"] = dict(ctas=plan.ctas, rows=plan.rows,
+                                  stages=plan.stages, smem=plan.smem)
+        t[f"{k}_us_per_phase"] = t[f"{k}_device"] * 1e3 / phases[k]
+        share = t[f"{k}_bound"][0] / t[f"{k}_device"]
+        print(f"  {k}: G={plan.ctas} CTAs x R={plan.rows} rows, S="
+              f"{plan.stages} stages, {plan.smem} B shared memory; "
+              f"{t[f'{k}_us_per_phase']:.3f} us per dependent phase "
+              f"({phases[k]}); {100 * share:.1f}% of the bound; "
+              f"{t[f'{k}_plain_device'] / t[f'{k}_device']:.2f}x the plain "
+              f"version's speed")
+    t["shape"] = dict(label=label, nb=nb, B=B)
     return t
 
 
 def phase_kernels(info1, dv0, iq0):
     print("kernels: K1/K2 against the plain sweeps on the card")
     for dtype in (torch.float32, torch.float64):
-        for B in (128, 256):
-            for nb in (1, 3, 9):
+        for B in (128, 160, 256, 512):
+            for nb in (1, 2, 3, 9):
                 fac, bb = synthetic(nb, B, dtype, seed=nb * 1000 + B)
                 check_sweeps(fac, bb, f"synthetic nb={nb} B={B} "
                              f"{str(dtype)[6:]}", None)
@@ -380,9 +414,9 @@ def phase_refine4(err):
     check_step(4, loss, g_dv, g_iq, dv0.numel(), 1e-7)
     warm, _, _, _ = timed_step(step, dv0, iq0)
     print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s")
-    for which, (fac, bb) in check_real_factors(info, dv0, iq0, 4,
-                                               err).items():
-        time_sweeps(fac, bb, f"refine-4 {which}")
+    return [time_sweeps(fac, bb, f"refine-4 {which}")
+            for which, (fac, bb) in check_real_factors(info, dv0, iq0, 4,
+                                                       err).items()]
 
 
 # ---------------------------------------------------------------------------
@@ -768,6 +802,17 @@ def kernel_entry(key, name, source, replaces, launches, err, t):
             "library_device_ms": t["library_device_ms"]}
 
 
+def sweep_shape(k, t):
+    """K1's or K2's times at one factor's shape, for the kernels line: the
+    top-level numbers of its entry are those of the refine-1 mesh-motion
+    factor; this list adds the refine-4 factors and the geometry."""
+    return dict(t["shape"], **t[f"{k}_geometry"], ms=t[k],
+                device_ms=t[f"{k}_device"], plain_ms=t[f"{k}_plain"],
+                plain_device_ms=t[f"{k}_plain_device"],
+                bound_ms=t[f"{k}_bound"][0], bound_by=t[f"{k}_bound"][1],
+                us_per_phase=t[f"{k}_us_per_phase"])
+
+
 def main():
     femo_tpu_torch.set_precision("float64")
     phase_device()
@@ -776,7 +821,7 @@ def main():
                                                     **ORACLE_CFG)
     t, err = phase_kernels(info1, dv0, iq0)
     launches = phase_refine1(step1, dv0, iq0, info1)
-    phase_refine4(err)
+    t4 = phase_refine4(err)
     print(f"kernels vs plain on the step's factors (refine 1 and 4): max "
           f"|kernel - plain| K1 {err['K1']:.3e}, K2 {err['K2']:.3e}")
     t_spmv, err_spmv, selftest = phase_spmv()
@@ -786,12 +831,13 @@ def main():
 
     bt, sp = "femo_tpu_torch/csrc/bt_sweeps.cu", "femo_tpu_torch/csrc/spmv.cu"
     ps = "experiments/pallas_spmv.py"
-    rows = [kernel_entry(
+    rows = [dict(kernel_entry(
         k, name, bt, f"femo_tpu/ops/pallas_bt.py:{line}", launches[k],
         err[k], dict(ms=t[k], plain_ms=t[f"{k}_plain"], library_ms=None,
                      device_ms=t[f"{k}_device"],
                      plain_device_ms=t[f"{k}_plain_device"],
-                     library_device_ms=None, bound=t[f"{k}_bound"]))
+                     library_device_ms=None, bound=t[f"{k}_bound"])),
+        shapes=[sweep_shape(k, ts) for ts in [t] + t4])
         for k, name, line in (("K1", "bt_fwd_sweep", 60),
                               ("K2", "bt_bwd_sweep", 76))]
     rows += [kernel_entry(k, name, sp, f"{ps}:{line}", n, err_spmv[k],

@@ -10,11 +10,13 @@ The solve phase of the block-tridiagonal factorization
 
 `femo_tpu_torch/csrc/bt_sweeps.cu` implements them for Hopper, replacing
 the Pallas TPU kernels `femo_tpu/ops/pallas_bt.py::_fwd_kernel` and
-`::_bwd_kernel`.  One thread block walks the whole chain with the carry
-in shared memory; each block row is a coalesced warp-row reduction.  What
-bounds a sweep on the card is streaming two (K1) or one (K2) (B,B) blocks
-per step from HBM through a single SM, strictly in sequence; the source
-note in the .cu file says how the design addresses it.
+`::_bwd_kernel`.  Each sweep is one cooperative launch of G CTAs, each
+owning R rows of every block: the CTAs stream their row slabs through a
+ring of S shared-memory stages (bulk copies, ahead of the recurrence) and
+pass the length-B carry to each other through the output itself, which the
+wrapper fills with a "not yet written" NaN pattern (`_EMPTY`) before the
+launch.  `sweep_plan` computes (R, G, S) and the shared memory; the source
+note in the .cu file says why the design looks as it does.
 
 The sweeps run in the working dtype (float32 or float64).  The Pallas
 kernels were f32 only because Mosaic has no f64, which is why the JAX
@@ -32,7 +34,9 @@ without error, and nothing else touches them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from dataclasses import dataclass
 
 import torch
 
@@ -48,6 +52,62 @@ build_log = ""  # nvcc/ptxas output of the build this process made
 
 _lib = None
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# the kernels' "not yet written" mark (kEmpty in bt_sweeps.cu): a NaN bit
+# pattern that no sweep stores, as the signed integer of the same width
+_EMPTY = {torch.float32: (torch.int32, 0xFFBA5A5A - (1 << 32)),
+          torch.float64: (torch.int64, 0xFFF7A5A55A5AA5A5 - (1 << 64))}
+
+# geometry limits of bt_sweeps.cu (kMaxStages, kBarrierBytes) and of sm_90
+# (the shared memory one block may use)
+MAX_STAGES = 4
+_BARRIER_BYTES = 128
+SMEM_LIMIT = 232_448
+H100_SMS = 132
+MIN_ROWS = 4
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """Launch geometry of one sweep kernel: G CTAs, CTA g owning rows
+    [g R, min((g + 1) R, B)) of every block, S stages of row slabs each,
+    `smem` bytes of dynamic shared memory a CTA."""
+    rows: int  # R
+    ctas: int  # G
+    stages: int  # S
+    smem: int
+
+
+def sweep_plan(kernel: str, nb: int, B: int, dtype,
+               sms: int = H100_SMS) -> SweepPlan:
+    """Geometry of K1 ("K1") or K2 ("K2") for nb blocks of width B on a
+    card with `sms` SMs.  R = max(MIN_ROWS, ceil(B / sms)) rows per CTA,
+    so the G = ceil(B / R) CTAs fit one to an SM; at least MIN_ROWS (one
+    per computing warp, half the CTA's warps) because every CTA polls the
+    whole carry each phase, and fewer, larger CTAs poll less.  As many ring
+    stages (up to MAX_STAGES, and no more than the chain has steps with
+    blocks) as the shared memory holds.  Raises ValueError when one stage
+    does not fit."""
+    if kernel not in ("K1", "K2"):
+        raise ValueError(f"kernel {kernel!r}: 'K1' or 'K2'")
+    elem = torch.empty((), dtype=dtype).element_size()
+    R = max(MIN_ROWS, -(-B // sms))
+    G = -(-B // R)
+    blocks, steps = (2, nb) if kernel == "K1" else (1, nb - 1)
+    # bt_sweeps.cu::smem_bytes: mbarriers, two carries, two (R,) row
+    # buffers, the ring
+    fixed = _BARRIER_BYTES + (2 * B + 2 * R) * elem
+    stage = blocks * R * B * elem
+    S = min(MAX_STAGES, max(steps, 1), (SMEM_LIMIT - fixed) // stage)
+    if S < 1:
+        raise ValueError(f"B={B} is too wide for the sweep kernels: one "
+                         f"stage of {stage} bytes does not fit the "
+                         f"{SMEM_LIMIT}-byte shared memory of a CTA")
+    return SweepPlan(R, G, S, fixed + S * stage)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _nvcc() -> str:
@@ -70,10 +130,10 @@ def get_lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in _SUFFIX.values():
         fwd = getattr(lib, f"bt_fwd_sweep_{dt}")
-        fwd.argtypes = [p, p, p, p, i, i, p]
+        fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fwd.restype = i
         bwd = getattr(lib, f"bt_bwd_sweep_{dt}")
-        bwd.argtypes = [p, p, p, i, i, p]
+        bwd.argtypes = [p, p, p, i, i, i, i, p]
         bwd.restype = i
     lib.bt_error_string.argtypes = [i]
     lib.bt_error_string.restype = ctypes.c_char_p
@@ -103,10 +163,23 @@ def _check(bb, **blocks):
 
 
 def _check_cuda(bb, **blocks):
+    """_check, on CUDA tensors whose data is 16-byte aligned (the bulk
+    copies' requirement)."""
     _check(bb, **blocks)
     if bb.device.type != "cuda":
         raise ValueError(f"the sweep kernels take CUDA tensors, got "
                          f"{bb.device}")
+    for name, t in [("b", bb)] + list(blocks.items()):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} data must be 16-byte aligned")
+
+
+def _empty(shape, like):
+    """A tensor of `shape` on like's device and dtype, every element the
+    kernels' "not yet written" mark."""
+    itype, bits = _EMPTY[like.dtype]
+    return torch.full(shape, bits, dtype=itype,
+                      device=like.device).view(like.dtype)
 
 
 def _raise_on(err: int, what: str):
@@ -120,12 +193,13 @@ def fwd_sweep_cuda(Sinv, L, bb):
     _check_cuda(bb, Sinv=Sinv, L=L)
     lib = get_lib()
     nb, B = bb.shape
-    z = torch.empty_like(bb)
+    plan = sweep_plan("K1", nb, B, bb.dtype, _sms(bb.device.index))
+    z, t = _empty((2, nb, B), bb)  # the output and the scratch t_i
     with torch.cuda.device(bb.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"bt_fwd_sweep_{_SUFFIX[bb.dtype]}")(
-            Sinv.data_ptr(), L.data_ptr(), bb.data_ptr(), z.data_ptr(),
-            nb, B, stream)
+            Sinv.data_ptr(), L.data_ptr(), bb.data_ptr(), t.data_ptr(),
+            z.data_ptr(), nb, B, plan.rows, plan.stages, stream)
     _raise_on(err, "bt_fwd_sweep")
     launches["K1"] += 1
     return z
@@ -136,11 +210,13 @@ def bwd_sweep_cuda(C, z):
     _check_cuda(z, C=C)
     lib = get_lib()
     nb, B = z.shape
-    x = torch.empty_like(z)
+    plan = sweep_plan("K2", nb, B, z.dtype, _sms(z.device.index))
+    x = _empty((nb, B), z)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"bt_bwd_sweep_{_SUFFIX[z.dtype]}")(
-            C.data_ptr(), z.data_ptr(), x.data_ptr(), nb, B, stream)
+            C.data_ptr(), z.data_ptr(), x.data_ptr(), nb, B, plan.rows,
+            plan.stages, stream)
     _raise_on(err, "bt_bwd_sweep")
     launches["K2"] += 1
     return x

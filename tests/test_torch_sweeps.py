@@ -29,13 +29,16 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / np.linalg.norm(b)
 
 
-def _jax_factor(nb, dtype, seed=0):
-    """tests/test_pallas_bt.py's well-conditioned system, factored by JAX."""
+def _jax_factor(nb, dtype, seed=0, B=B):
+    """tests/test_pallas_bt.py's well-conditioned system, factored by JAX;
+    above B=128 its random parts scale with sqrt(128/B), so that the
+    conditioning does not grow with B (no change at B=128)."""
     rng = np.random.default_rng(seed)
+    a = np.sqrt(128 / B)
     D = np.tile(np.eye(B) * 4.0, (nb, 1, 1)) \
-        + 0.02 * rng.standard_normal((nb, B, B))
+        + 0.02 * a * rng.standard_normal((nb, B, B))
     D = 0.5 * (D + np.swapaxes(D, 1, 2))
-    L = 0.1 * rng.standard_normal((nb, B, B))
+    L = 0.1 * a * rng.standard_normal((nb, B, B))
     L[0] = 0
     U = np.swapaxes(np.roll(L, -1, axis=0), 1, 2).copy()
     U[-1] = 0
@@ -61,13 +64,14 @@ def test_plain_sweeps_match_pallas_interpret_f32(nb):
     assert _rel(x_t.numpy(), x_j) <= 1e-6
 
 
-@pytest.mark.parametrize("nb", [1, 3, 9])
-def test_plain_sweeps_match_jax_solve_f64(nb):
-    fac, bb = _jax_factor(nb, np.float64, seed=nb)
+@pytest.mark.parametrize("nb, width", [(1, B), (3, B), (9, B), (2, 512)],
+                         ids=["1", "3", "9", "2-B512"])
+def test_plain_sweeps_match_jax_solve_f64(nb, width):
+    fac, bb = _jax_factor(nb, np.float64, seed=nb, B=width)
     x_j = fac.solve(jnp.asarray(bb.reshape(-1)))  # lax.scan sweeps
     Sinv, L, C, b = _torch(fac.Sinv, fac.mat.L, fac.C, bb)
     x_t = bt_sweeps.bt_sweep_solve(Sinv, L, C, b)
-    assert x_t.dtype == torch.float64
+    assert x_t.dtype == torch.float64 and x_t.shape == (nb, width)
     assert _rel(x_t.numpy().reshape(-1), x_j) <= 1e-12
 
 
@@ -105,3 +109,51 @@ def test_wrapper_checks_its_inputs(bad):
         Sinv = t(nb + 1, Bb, Bb)
     with pytest.raises(ValueError):
         bt_sweeps.bt_sweep_solve(Sinv, L, C, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("width", [128, 160, 256, 512])
+def test_sweep_plan_geometry(width, dtype):
+    """The launch geometry of both kernels on an H100 (132 SMs): the CTAs'
+    row ranges tile [0, B) exactly, the CTAs fit one to an SM, the shared
+    memory fits a block, and every bulk copy (one CTA's rows of one block)
+    is 16-byte aligned in size and offset."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    for kernel in ("K1", "K2"):
+        for nb in (1, 2, 147):
+            plan = bt_sweeps.sweep_plan(kernel, nb, width, dtype)
+            R, G = plan.rows, plan.ctas
+            rows = [range(g * R, min((g + 1) * R, width)) for g in range(G)]
+            assert [r for rg in rows for r in rg] == list(range(width))
+            assert all(len(rg) >= 1 for rg in rows)
+            assert 1 <= G <= bt_sweeps.H100_SMS
+            assert plan.smem <= bt_sweeps.SMEM_LIMIT == 232_448
+            steps = nb if kernel == "K1" else nb - 1
+            assert 1 <= plan.stages <= min(bt_sweeps.MAX_STAGES,
+                                           max(steps, 1))
+            for g, rg in enumerate(rows):
+                for i in (0, nb - 1):
+                    offset = ((i * width + rg.start) * width) * elem
+                    assert offset % 16 == 0
+                assert len(rg) * width * elem % 16 == 0
+
+
+def test_sweep_plan_refuses_a_stage_too_wide():
+    # one K1 stage of 11 rows of Sinv and L at B=1344 in f64 is 236,544 B
+    with pytest.raises(ValueError, match="too wide"):
+        bt_sweeps.sweep_plan("K1", 4, 1344, torch.float64)
+    bt_sweeps.sweep_plan("K2", 4, 1344, torch.float64)  # half the stage
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_outputs_start_as_the_not_written_mark(dtype):
+    """The wrapper's fill is the NaN bit pattern the kernels poll for."""
+    itype, bits = bt_sweeps._EMPTY[dtype]
+    out = bt_sweeps._empty((2, 3, 32), torch.zeros(1, dtype=dtype))
+    assert out.dtype == dtype and out.shape == (2, 3, 32)
+    assert bool(torch.isnan(out).all())
+    assert bool((out.view(itype) == bits).all())
+    want = {torch.float32: 0xFFBA5A5A, torch.float64: 0xFFF7A5A55A5AA5A5}
+    width = 8 * out.element_size()
+    assert bits % (1 << width) == want[dtype]
+
