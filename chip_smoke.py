@@ -28,11 +28,20 @@ non-zero without the final line:
    too.
 6. SpMV: K4/K4T (element), K3 (ELL) and K5 (RCM band) against their plain
    versions (f64 1e-14, f32 1e-6) and each other on the W1 operator at
-   nel=260; the port of experiments/pallas_spmv.py's self-test with the
+   nel=260; K5, which reads a plan of the band's nonzero diagonal
+   segments, also on the W1 band with the rounding leftovers of its
+   cancelling couplings zeroed, on the BC-constrained W1 band, on the band
+   of stiffness plus mass (no exact zero among its CSR entries) and on
+   synthetic bands
+   (n from 1, b up to 2999), each launched twice and required to give the
+   same bits; the port of experiments/pallas_spmv.py's self-test with the
    K3/K5 counts reset just before it; times of each kernel, its plain
    version and torch.sparse.mm on the CSR, beside the bound: CUDA events
    around single calls, and the profiler's device time per call, which
-   leaves out the host time between launches.
+   leaves out the host time between launches.  K5 is timed on all four
+   nel=260 bands, beside the bound on the band's nonzeros (with x and y),
+   the bound on what it reads and the dense band's bound, with the band's
+   nonzero count, its plan's segments, bytes and build time.
 7. W1, the Poisson source-control optimization, at nel=260 in f64 through
    the graph API (build_fea, FEAModel, Simulator.run, objective_gradient)
    with the K4/K4T counts reset just before and read just after: loss and
@@ -55,6 +64,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 from torch.autograd import DeviceType
 
@@ -63,13 +73,14 @@ from femo_tpu_torch import native
 from femo_tpu_torch.models.motor.model import (
     build_motor_jit_step, edge_delta_design_space)
 from femo_tpu_torch.models.motor.pde import source_tables
-from femo_tpu_torch.fea.assemble import compile_form
+from femo_tpu_torch.fea.assemble import assemble_matrix, compile_form
+from femo_tpu_torch.fea.forms import FormDef, dot, dx, grad
 from femo_tpu_torch.fea.space import Function
 from femo_tpu_torch.fea.utils import errorNorm
 from femo_tpu_torch.graph.model import FEAModel
 from femo_tpu_torch.graph.optimizer import OptimizationProblem, SLSQP
 from femo_tpu_torch.graph.simulator import Simulator
-from femo_tpu_torch.models.poisson import build_fea
+from femo_tpu_torch.models.poisson import build_fea, on_boundary
 from femo_tpu_torch.ops import bt_sweeps, spmv
 from femo_tpu_torch.ops.block_tridiag import BlockTridiagonalMatrix
 from femo_tpu_torch.solvers.krylov import cg
@@ -483,6 +494,158 @@ def torch_csr(m):
         check_invariants=True)
 
 
+def stiffness_mass(V):
+    """Stiffness plus mass on V, assembled on the card.  The P1 mass term
+    fills the couplings that cancel in the W1 stiffness on this mesh, so
+    no stored entry of its CSR is an exact zero (7 in an interior row)."""
+    return assemble_matrix(FormDef(
+        [dx(lambda w, g: dot(grad(w.u), grad(w.v)) + w.u * w.v)],
+        coeffs=[Function(V, "u")], test=V), "u")
+
+
+def rcm_csr(csr, perm, free=None):
+    """The matrix that spmv.banded_from_element_matrix bands (with `free`,
+    the BC-constrained P A P + (I - P)) as a scipy CSR in its RCM order."""
+    if free is not None:
+        P = sp.diags(free.astype(csr.dtype))
+        csr = P @ csr @ P + sp.diags((~free).astype(csr.dtype))
+    return csr.tocsr()[perm][:, perm]
+
+
+def synthetic_band(n, b, rng):
+    """A band (n, 2b+1), numpy f64, for K5's edge cases (also made by
+    tests/test_torch_spmv.py): a few nonzero diagonals (the outermost two
+    among them), each zeroed whole in some tiles of 32 rows and not in
+    others, single zeros inside segments, one all-zero row (n > 1)."""
+    nd = 2 * b + 1
+    diags = np.unique(np.r_[0, b, nd - 1, rng.integers(0, nd, 4)])
+    vals = rng.standard_normal((n, len(diags)))
+    for t in range(-(-n // spmv.TILE)):
+        vals[t * spmv.TILE:(t + 1) * spmv.TILE,
+             rng.random(len(diags)) < 0.4] = 0
+    vals[rng.random(vals.shape) < 0.05] = 0
+    band = np.zeros((n, nd))
+    band[:, diags] = vals
+    if n > 1:
+        band[rng.integers(n)] = 0
+    return band
+
+
+def plan_stats(plan):
+    """Segments per tile (mean, max) of a K5 plan and the bytes of its
+    arrays (what K5 reads besides x)."""
+    per_tile = torch.diff(plan.tile_ptr).double()
+    return dict(tiles=plan.n_tiles, segments=plan.diag.numel(),
+                per_tile_mean=float(per_tile.mean()) if plan.n_tiles else 0.0,
+                per_tile_max=int(per_tile.max()) if plan.n_tiles else 0,
+                bytes=sum(t.numel() * t.element_size()
+                          for t in (plan.tile_ptr, plan.diag, plan.vals)))
+
+
+def band_nonzeros(band):
+    """(nonzeros, nonzeros at most 1e-14 of the largest |entry|) of a band:
+    the second counts the rounding leftovers of couplings that cancel."""
+    a = band.abs()
+    return (int(torch.count_nonzero(a)),
+            int(((a > 0) & (a <= 1e-14 * a.max())).sum()))
+
+
+def check_k5(label, band, bw, x64, err):
+    """K5 against the plain dense product on one band in f64 and f32,
+    each with its own plan, each launched twice and required to give the
+    same bits; folds max |K5 - plain| (f64) into err.  Returns the plans
+    and K5's products by dtype."""
+    plans, ys, out = {}, {}, []
+    for dtype in (torch.float64, torch.float32):
+        bnd, x = band.to(dtype), x64.to(dtype)
+        plans[dtype] = plan = spmv.BandedSpMVPlan(bnd, bw)
+        y1 = spmv.banded_spmv_cuda(plan, x)
+        y2 = spmv.banded_spmv_cuda(plan, x)
+        y_p = spmv.banded_spmv_plain(bnd, x, bw)
+        torch.cuda.synchronize()
+        tol = SPMV_TOL[dtype]
+        r = float(torch.linalg.norm(y1 - y_p)) / max(
+            float(torch.linalg.norm(y_p)), 1e-300)  # a band may give y = 0
+        if not r <= tol:
+            raise AssertionError(f"K5 vs plain, {label}, {dtype}: {r}")
+        if not torch.equal(y1, y2):
+            raise AssertionError(f"K5, {label}, {dtype}: two launches "
+                                 "differ")
+        if dtype == torch.float64:
+            err["K5"] = max(err["K5"], float((y1 - y_p).abs().max()))
+        ys[dtype] = y1
+        out.append(f"{str(dtype)[6:]} rel L2 {r:.3e} (tol {tol:.0e})")
+    s = plan_stats(plans[torch.float64])
+    print(f"  K5 vs plain, {label} (n={band.shape[0]}, b={bw}): "
+          f"{', '.join(out)}; second launch bit-identical; plan "
+          f"{s['segments']} segments over {s['tiles']} tiles (mean "
+          f"{s['per_tile_mean']:.2f}, max {s['per_tile_max']} per tile), "
+          f"{s['bytes'] / 1e6:.3f} MB in f64")
+    return plans, ys
+
+
+def time_spmv(name, kern, plain, lib, nbytes, ops):
+    """Kernel, plain and library times of one SpMV (f64): medians of 50
+    CUDA-event timings of one call, and the profiler's device time per
+    call; the bound on nbytes and ops."""
+    check_rel(f"torch.sparse.mm vs {name}", lib()[:, 0], kern(),
+              SPMV_TOL[torch.float64])
+    r = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+             library_ms=cuda_ms(lib), device_ms=device_ms(kern),
+             plain_device_ms=device_ms(plain),
+             library_device_ms=device_ms(lib),
+             bound=bound_ms(nbytes, ops, torch.float64))
+    print(f"  time {name}, f64 (median of 50, CUDA events): kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"torch.sparse.mm {r['library_ms']:.4f} ms; device time per "
+          f"call (profiler, 10 calls): kernel {r['device_ms']:.4f} ms, "
+          f"plain {r['plain_device_ms']:.4f} ms, torch.sparse.mm "
+          f"{r['library_device_ms']:.4f} ms; bound {r['bound'][0]:.4f} "
+          f"ms ({nbytes / 1e6:.2f} MB)")
+    return r
+
+
+def time_k5(label, band, bw, plan, lib_csr, xp):
+    """K5's times on one band (f64) beside three bounds: on the band's
+    nonzeros with x and y (the bound of the function), on what K5 reads
+    (the plan, x and y) and on the dense band; with the plan's build
+    time: host wall time (median of 5, ending in a sync) and the
+    profiler's device time per build."""
+    s = plan_stats(plan)
+    nnz, tiny = band_nonzeros(band)
+    n, vec = band.shape[0], 2 * band.shape[0] * 8
+    P = torch_csr(lib_csr)
+    r = time_spmv(f"K5 ({label})", lambda: spmv.banded_spmv_cuda(plan, xp),
+                  lambda: spmv.banded_spmv_plain(band, xp, bw),
+                  lambda: torch.sparse.mm(P, xp[:, None]), nnz * 8 + vec,
+                  2 * nnz)
+    build = lambda: spmv.BandedSpMVPlan(band, bw)  # noqa: E731
+    r.update(band=label, n=n, b=bw, band_nnz=nnz, band_tiny=tiny,
+             csr_nnz=int(lib_csr.nnz), plan=s,
+             plan_bound_ms=bound_ms(s["bytes"] + vec,
+                                    2 * s["segments"] * spmv.TILE,
+                                    torch.float64)[0],
+             dense_bound_ms=bound_ms(band.numel() * 8 + vec,
+                                     2 * band.numel(), torch.float64)[0],
+             plan_build_ms=1e3 * statistics.median(
+                 synced(build)[0] for _ in range(5)),
+             plan_build_device_ms=device_ms(build))
+    print(f"  K5 ({label}): band {nnz} nonzeros, {tiny} of them at most "
+          f"1e-14 of the largest; {r['device_ms'] * 1e3:.2f} us of device "
+          f"time vs torch.sparse.mm {r['library_device_ms'] * 1e3:.2f} us "
+          f"(CSR, {r['csr_nnz']} stored entries); bound on the nonzeros, x "
+          f"and y {r['bound'][0] * 1e3:.3f} us ({(nnz * 8 + vec) / 1e6:.2f} "
+          f"MB, {100 * r['bound'][0] / r['device_ms']:.0f}% of it reached), "
+          f"on what K5 reads {r['plan_bound_ms'] * 1e3:.3f} us "
+          f"({(s['bytes'] + vec) / 1e6:.2f} MB), on the dense band "
+          f"{r['dense_bound_ms'] * 1e3:.1f} us; plan "
+          f"{s['per_tile_mean']:.2f} segments per tile (max "
+          f"{s['per_tile_max']}), {s['bytes'] / 1e6:.3f} MB, built in "
+          f"{r['plan_build_ms']:.3f} ms ({r['plan_build_device_ms']:.4f} ms "
+          f"of device time)")
+    return r
+
+
 def spmv_selftest(A, ell, band, bw, perm, x, b):
     """The port of experiments/pallas_spmv.py::_selftest on the card: the
     ELL operator, the element matvec and the RCM band against the
@@ -529,10 +692,12 @@ def phase_spmv():
     rng = np.random.default_rng(0)
     x64 = torch.as_tensor(rng.standard_normal(n), device="cuda")
     err = {"K3": 0.0, "K4": 0.0, "K4T": 0.0, "K5": 0.0}
+    xp = x64[perm_t].contiguous()
+    plans, y5 = check_k5("W1 stiffness", band, bw, xp, err)
     for dtype in (torch.float64, torch.float32):
         tol = SPMV_TOL[dtype]
         Ae, x = b0.A.to(dtype), x64.to(dtype)
-        vals, bnd = ell.vals.to(dtype), band.to(dtype)
+        vals = ell.vals.to(dtype)
         out = {
             "K4": (spmv.element_spmv_cuda(Ae, b0.plan, x),
                    spmv.element_spmv_plain(Ae, b0.rows, b0.cols, x, n)),
@@ -540,8 +705,6 @@ def phase_spmv():
                     spmv.element_rspmv_plain(Ae, b0.rows, b0.cols, x, n)),
             "K3": (spmv.ell_spmv_cuda(vals, ell.cols, x),
                    spmv.ell_spmv_plain(vals, ell.cols, x)),
-            "K5": (spmv.banded_spmv_cuda(bnd, x[perm_t].contiguous(), bw),
-                   spmv.banded_spmv_plain(bnd, x[perm_t], bw)),
         }
         torch.cuda.synchronize()
         name = str(dtype)[6:]
@@ -551,8 +714,44 @@ def phase_spmv():
                 err[kern] = e
         y4 = out["K4"][0]
         check_rel(f"K3 vs K4, {name}", out["K3"][0], y4, tol)
-        check_rel(f"K5 vs K4 (RCM order), {name}", out["K5"][0], y4[perm_t],
+        check_rel(f"K5 vs K4 (RCM order), {name}", y5[dtype], y4[perm_t],
                   tol)
+
+    # K5 on the other bands: the W1 band without the rounding leftovers of
+    # the couplings that cancel (those of the band assembled on the CPU are
+    # exact zeros), the BC-constrained W1 operator, stiffness plus mass (no
+    # exact zeros in its CSR), synthetic bands
+    a = band.abs()
+    band_z = torch.where(a <= 1e-14 * a.max(), 0.0, band)
+    csr_z = csr.copy()
+    csr_z.data[np.abs(csr_z.data) <= 1e-14 * np.abs(csr_z.data).max()] = 0
+    csr_z.eliminate_zeros()
+    plan_z = check_k5("W1 stiffness, leftovers zeroed", band_z, bw, xp,
+                      err)[0][torch.float64]
+    V = d["V"]
+    free = ~np.isin(np.arange(n), V.locate_dofs_geometrical(on_boundary))
+    band_c, bw_c, perm_c = spmv.banded_from_element_matrix(A, free=free)
+    A7 = stiffness_mass(V)
+    csr7 = A7.to_scipy_csr()
+    band7, bw7, perm7 = spmv.banded_from_element_matrix(A7)
+    print(f"  stiffness + mass: CSR {csr7.nnz} stored entries, "
+          f"{int((csr7.data == 0).sum())} of them exact zeros, at most "
+          f"{int(np.diff(csr7.indptr).max())} a row; RCM bandwidth {bw7}. "
+          f"BC-constrained W1 band: {int((~free).sum())} constrained dofs, "
+          f"bandwidth {bw_c}")
+    xc = x64[torch.as_tensor(perm_c, device="cuda")].contiguous()
+    x7 = x64[torch.as_tensor(perm7, device="cuda")].contiguous()
+    plan_c = check_k5("W1 stiffness, BC-constrained", band_c, bw_c, xc,
+                      err)[0][torch.float64]
+    plan7 = check_k5("stiffness + mass", band7, bw7, x7,
+                     err)[0][torch.float64]
+    cases = [(n_, b_) for n_ in (1, 31, 32, 33, 100)
+             for b_ in sorted({0, 1, n_ - 1})] + [(5000, 2000), (3000, 2999)]
+    for i, (n_, b_) in enumerate(cases):
+        band_s = synthetic_band(n_, b_, np.random.default_rng(100 + i))
+        check_k5("synthetic", torch.as_tensor(band_s, device="cuda"), b_,
+                 torch.as_tensor(rng.standard_normal(n_), device="cuda"),
+                 err)
     # symmetric operator: K4T and K4 compute the same product
     check_rel("K4T vs K4, float64", spmv.element_rspmv_cuda(
         b0.A, b0.plan, x64), spmv.element_spmv_cuda(b0.A, b0.plan, x64),
@@ -569,57 +768,47 @@ def phase_spmv():
         raise AssertionError(f"self-test launches {path}")
 
     A_lib, At_lib = torch_csr(csr), torch_csr(csr.T.tocsr())
-    P_lib = torch_csr(csr[perm][:, perm])
-    xp = x64[perm_t].contiguous()
     plain = {
         "K4": lambda: spmv.element_spmv_plain(b0.A, b0.rows, b0.cols, x64,
                                               n),
         "K4T": lambda: spmv.element_rspmv_plain(b0.A, b0.rows, b0.cols,
                                                 x64, n),
         "K3": lambda: spmv.ell_spmv_plain(ell.vals, ell.cols, x64),
-        "K5": lambda: spmv.banded_spmv_plain(band, xp, bw),
     }
     kern = {
         "K4": lambda: spmv.element_spmv_cuda(b0.A, b0.plan, x64),
         "K4T": lambda: spmv.element_rspmv_cuda(b0.A, b0.plan, x64),
         "K3": lambda: spmv.ell_spmv_cuda(ell.vals, ell.cols, x64),
-        "K5": lambda: spmv.banded_spmv_cuda(band, xp, bw),
     }
     lib = {
         "K4": lambda: torch.sparse.mm(A_lib, x64[:, None]),
         "K4T": lambda: torch.sparse.mm(At_lib, x64[:, None]),
         "K3": lambda: torch.sparse.mm(A_lib, x64[:, None]),
-        "K5": lambda: torch.sparse.mm(P_lib, xp[:, None]),
     }
     vec = 2 * n * 8  # x read once, y written once
     nbytes = {
         "K4": ne * nr * nc * 8 + ne * (nr + nc) * 4 + vec,
         "K3": ell.vals.numel() * (8 + 4) + vec,
-        "K5": band.numel() * 8 + vec,
     }
     nbytes["K4T"] = nbytes["K4"]
     ops = {"K4": 2 * ne * nr * nc, "K4T": 2 * ne * nr * nc,
-           "K3": 2 * ell.vals.numel(), "K5": 2 * band.numel()}
+           "K3": 2 * ell.vals.numel()}
     saved = dict(spmv.launches)
-    t = {}
-    for name in ("K4", "K4T", "K3", "K5"):
-        check_rel(f"torch.sparse.mm vs {name}", lib[name]()[:, 0],
-                  kern[name](), SPMV_TOL[torch.float64])
-        t[name] = dict(ms=cuda_ms(kern[name]), plain_ms=cuda_ms(plain[name]),
-                       library_ms=cuda_ms(lib[name]),
-                       device_ms=device_ms(kern[name]),
-                       plain_device_ms=device_ms(plain[name]),
-                       library_device_ms=device_ms(lib[name]),
-                       bound=bound_ms(nbytes[name], ops[name],
-                                      torch.float64))
-        r = t[name]
-        print(f"  time {name}, f64 (median of 50, CUDA events): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"torch.sparse.mm {r['library_ms']:.4f} ms; device time per "
-              f"call (profiler, 10 calls): kernel {r['device_ms']:.4f} ms, "
-              f"plain {r['plain_device_ms']:.4f} ms, torch.sparse.mm "
-              f"{r['library_device_ms']:.4f} ms; bound {r['bound'][0]:.4f} "
-              f"ms ({nbytes[name] / 1e6:.2f} MB)")
+    t = {name: time_spmv(name, kern[name], plain[name], lib[name],
+                         nbytes[name], ops[name])
+         for name in ("K4", "K4T", "K3")}
+    # K5 on the four nel=260 bands; the W1 stiffness band's numbers are
+    # K5's in the kernels line
+    t["K5_bands"] = [
+        time_k5("W1 stiffness", band, bw, plans[torch.float64],
+                rcm_csr(csr, perm), xp),
+        time_k5("W1 stiffness, leftovers zeroed", band_z, bw, plan_z,
+                rcm_csr(csr_z, perm), xp),
+        time_k5("W1 stiffness, BC-constrained", band_c, bw_c, plan_c,
+                rcm_csr(csr, perm_c, free), xc),
+        time_k5("stiffness + mass", band7, bw7, plan7, rcm_csr(csr7, perm7),
+                x7)]
+    t["K5"] = t["K5_bands"][0]
     spmv.launches.update(saved)  # comparisons and timings do not count
     return t, err, path
 
@@ -815,7 +1004,7 @@ def sweep_shape(k, t):
 
 def main():
     femo_tpu_torch.set_precision("float64")
-    phase_device()
+    card = phase_device()
     phase_build()
     step1, (dv0, iq0), info1 = build_motor_jit_step(refine=1, device="cuda",
                                                     **ORACLE_CFG)
@@ -847,6 +1036,18 @@ def main():
                  ("K4", "element_spmv", 121, w1_launches["K4"]),
                  ("K4T", "element_spmv transposed", 121, w1_launches["K4T"]),
                  ("K5", "banded_spmv", 217, selftest["K5"]))]
+    # K5: its top-level numbers are the W1 stiffness band's; "bands" adds
+    # the other nel=260 bands; bound_ms is on the band's nonzeros with x and
+    # y, plan_bound_ms on what K5 reads (plan, x, y), dense_bound_ms on the
+    # dense band
+    plan_keys = ("band_nnz", "band_tiny", "plan", "plan_bound_ms",
+                 "dense_bound_ms", "plan_build_ms", "plan_build_device_ms")
+    rows[-1].update({k: t_spmv["K5"][k] for k in plan_keys})
+    rows[-1]["bands"] = [
+        dict({k: v for k, v in r.items() if k != "bound"},
+             bound_ms=r["bound"][0], bound_by=r["bound"][1])
+        for r in t_spmv["K5_bands"]]
+    print(card)  # again near the end, where a cut output still shows it
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,11 +31,42 @@
 // k = 7), one warp per row above that; x is read through the read-only
 // cache (__ldg).  Bound: bytes (vals and cols once, x and y).
 //
-// K5, banded SpMV.  Each block of kRows threads stages its window
-// x[row0 - b, row0 + kRows + b) in shared memory once (zero outside
-// [0, n)), and each thread reduces one row over the 2b+1 diagonals from
-// shared memory: no gathers, as on the TPU.  Bound: bytes (the band,
-// n (2b+1) values, dominates: most of it is the zeros of the band).
+// K5, banded SpMV, on the band's nonzero diagonal segments.  The TPU kernel
+// read the whole dense RCM band, n x (2b+1), because Mosaic lowers no
+// gathers.  That band is ~99% zeros (the W1 stiffness at nel=260: n =
+// 68,121, b = 261, 285 MB in f64 for 339,561 nonzeros), so reading it
+// bounds any kernel at 85 us, 8x a library SpMV on the CSR.  Here the band
+// is read once, on the device, into a plan (femo_tpu_torch/ops/spmv.py::
+// BandedSpMVPlan): rows cut into tiles of kTile = 32, and per tile only the
+// diagonals d whose 32 values are not all zero, in increasing d: tile_ptr
+// (n_tiles + 1), diag (segments), vals (segments, 32) slot-major.  The
+// band assembled on the card holds 409,449 nonzeros at nel=260: 69,888 of
+// them are rounding leftovers (at most 1e-14 of the largest entry) of
+// couplings that cancel exactly on the CPU, and they are kept, since the
+// dense product multiplies them too.  Its plan holds 7.45 segments a tile
+// (max 18), 4.1 MB; with the leftovers zeroed, 5.46 a tile, 3.0 MB.
+// One warp owns one
+// tile, lane r row 32t + r; for segment j the warp loads vals[j, 0..31]
+// and x[32t + d_j - b + 0..31]: since d_j is the same across the warp,
+// both are contiguous (256 bytes in f64), so the ELL form's gather becomes
+// a coalesced load.  The warp reads up to 32 of its diag values at once and
+// broadcasts them with shuffles; segments go four at a time, their loads
+// issued before their products, so each warp keeps several loads in
+// flight.  Blocks of two warps spread the tiles evenly over the SMs (at
+// nel=260, 1,065 blocks, ~8 an SM).  x is read through the read-only path
+// (545 KB at nel=260, it stays in L2); there is no shared-memory window, so
+// no limit on b; x is zero outside [0, n) by a bounds test.  Bound: bytes,
+// the band's nonzeros with x and y, 4.4 MB at nel=260, 1.30 us at 3.35
+// TB/s (the plan's 5.2 MB with x and y, 1.56 us).  The kernel takes ~2.6 us
+// on an H100 (chip_smoke.py) on every nel=260 band, from 5.46 to 7.45
+// segments a tile, so the launch and each warp's chain of dependent loads
+// (tile_ptr, diag, then vals and x) bound it, not the bandwidth: TMA and
+// wgmma buy nothing here.  The terms are summed in
+// increasing d, the dense loop's order; the terms skipped are products
+// with zeros of the band, exact zeros for finite x.  The one difference
+// from the dense form (and the TPU kernel): a zero of the band that meets
+// an inf or NaN of x gives NaN there, and K5 does not produce that NaN
+// when it skips the zero's segment.  Two launches give the same bits.
 //
 // Built by femo_tpu_torch/ops/spmv.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -48,7 +79,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 256;  // K5 rows per block
+constexpr int kTile = 32;  // K5 rows per tile, one warp; ops/spmv.py TILE
+constexpr int kK5Threads = 64;  // K5: two warps a block, ~8 blocks an SM
+constexpr unsigned kFull = 0xffffffffu;
 
 // K4 (TRANS = false): out[i] = sum over slots s = e*nr + r of row i of
 //   sum_{k < nc} A[(e*nr + r)*nc + k] * v[idx[e*nc + k]],   idx = cols.
@@ -113,27 +146,47 @@ ell_warp_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
   if (lane == 0) y[i] = acc;
 }
 
+// x[col], zero outside [0, n)
 template <typename T>
-__global__ void __launch_bounds__(kRows)
-banded_kernel(const T* __restrict__ band, const T* __restrict__ x,
-              T* __restrict__ y, int n, int b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // x[row0 - b, row0 + kRows + b)
-  const int row0 = blockIdx.x * kRows;
-  const int w = kRows + 2 * b;
-  for (int t = threadIdx.x; t < w; t += blockDim.x) {
-    const int g = row0 - b + t;
-    xs[t] = (g >= 0 && g < n) ? x[g] : T(0);
-  }
-  __syncthreads();
-  const int i = row0 + threadIdx.x;
-  if (i >= n) return;
-  const int nd = 2 * b + 1;
-  const T* row = band + static_cast<size_t>(i) * nd;
-  const T* xw = xs + threadIdx.x;  // band[i, d] multiplies x[i + d - b]
+__device__ __forceinline__ T x_at(const T* __restrict__ x, int col, int n) {
+  return (col >= 0 && col < n) ? __ldg(x + col) : T(0);
+}
+
+// K5: y[32t + r] = sum over the segments j of tile t, in increasing
+// diag[j], of vals[j, r] * x[32t + r + diag[j] - b].
+template <typename T>
+__global__ void __launch_bounds__(kK5Threads)
+banded_segment_kernel(const int* __restrict__ tile_ptr,
+                      const int* __restrict__ diag, const T* __restrict__ vals,
+                      const T* __restrict__ x, T* __restrict__ y, int n,
+                      int b, int n_tiles) {
+  const int tile = (blockIdx.x * blockDim.x + threadIdx.x) / kTile;
+  const int lane = threadIdx.x % kTile;
+  if (tile >= n_tiles) return;  // whole warps leave together
+  const int row = tile * kTile + lane;
+  const int s1 = __ldg(tile_ptr + tile + 1);
   T acc = T(0);
-  for (int d = 0; d < nd; ++d) acc += __ldg(row + d) * xw[d];
-  y[i] = acc;
+  for (int base = __ldg(tile_ptr + tile); base < s1; base += kTile) {
+    const int cnt = min(kTile, s1 - base);
+    // lane k holds diag[base + k] - b; shuffles hand it to the whole warp
+    const int off = (lane < cnt ? __ldg(diag + base + lane) : 0) - b;
+    const T* v = vals + static_cast<size_t>(base) * kTile + lane;
+    int k = 0;
+    for (; k + 4 <= cnt; k += 4) {
+      T a[4], xv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a[u] = __ldg(v + static_cast<size_t>(k + u) * kTile);
+        xv[u] = x_at(x, row + __shfl_sync(kFull, off, k + u), n);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc += a[u] * xv[u];
+    }
+    for (; k < cnt; ++k)
+      acc += __ldg(v + static_cast<size_t>(k) * kTile) *
+             x_at(x, row + __shfl_sync(kFull, off, k), n);
+  }
+  if (row < n) y[row] = acc;
 }
 
 inline int blocks_for(long long work, int per_block) {
@@ -183,20 +236,16 @@ int launch_ell(const void* vals, const void* cols, const void* x, void* y,
 }
 
 template <typename T>
-int launch_banded(const void* band, const void* x, void* y, int n, int b,
-                  void* stream) {
+int launch_banded(const void* tile_ptr, const void* diag, const void* vals,
+                  const void* x, void* y, int n, int b, void* stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(kRows + 2 * b) * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        banded_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  banded_kernel<T><<<blocks_for(n, kRows), kRows, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(band), static_cast<const T*>(x),
-      static_cast<T*>(y), n, b);
+  const int n_tiles = (n + kTile - 1) / kTile;
+  banded_segment_kernel<T>
+      <<<blocks_for(static_cast<long long>(n_tiles) * kTile, kK5Threads),
+         kK5Threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(tile_ptr), static_cast<const int*>(diag),
+          static_cast<const T*>(vals), static_cast<const T*>(x),
+          static_cast<T*>(y), n, b, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -230,14 +279,14 @@ int ell_spmv_f64(const void* vals, const void* cols, const void* x, void* y,
   return launch_ell<double>(vals, cols, x, y, n, k, stream);
 }
 
-int banded_spmv_f32(const void* band, const void* x, void* y, int n, int b,
-                    void* stream) {
-  return launch_banded<float>(band, x, y, n, b, stream);
+int banded_spmv_f32(const void* tile_ptr, const void* diag, const void* vals,
+                    const void* x, void* y, int n, int b, void* stream) {
+  return launch_banded<float>(tile_ptr, diag, vals, x, y, n, b, stream);
 }
 
-int banded_spmv_f64(const void* band, const void* x, void* y, int n, int b,
-                    void* stream) {
-  return launch_banded<double>(band, x, y, n, b, stream);
+int banded_spmv_f64(const void* tile_ptr, const void* diag, const void* vals,
+                    const void* x, void* y, int n, int b, void* stream) {
+  return launch_banded<double>(tile_ptr, diag, vals, x, y, n, b, stream);
 }
 
 const char* spmv_error_string(int err) {

@@ -12,7 +12,13 @@ experiments/pallas_spmv.py).
 * K3, ELL SpMV `y_i = sum_k vals[i,k] x[cols[i,k]]`, on an ELL packing
   of the matrix (`ell_from_element_matrix`, `ELLOperator`).
 * K5, banded SpMV `y_i = sum_d band[i,d] x[i+d-b]`, on the RCM-reordered
-  band (`banded_from_element_matrix`).
+  band (`banded_from_element_matrix`).  The kernel reads a
+  `BandedSpMVPlan`, built once per band on its device: per tile of 32
+  rows, only the diagonal segments that hold a nonzero.  The plain
+  version reads the dense band.  The one difference: where a zero of the
+  band meets an inf or NaN of x, the dense product (and the TPU kernel)
+  gives NaN, and K5 does not when it skips that zero's segment; for finite
+  x the two are the same product.
 
 `femo_tpu_torch/csrc/spmv.cu` holds the kernels and a note on each one's
 design and bound.  They are built with nvcc for sm_90a at first use into
@@ -63,7 +69,7 @@ def get_lib():
         fn.argtypes = [p, p, p, p, i, i, p]
         fn.restype = i
         fn = getattr(lib, f"banded_spmv_{dt}")
-        fn.argtypes = [p, p, p, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, p]
         fn.restype = i
     lib.spmv_error_string.argtypes = [i]
     lib.spmv_error_string.restype = ctypes.c_char_p
@@ -330,24 +336,67 @@ def banded_spmv_plain(band, x, bandwidth: int):
     return torch.sum(band * xp.unfold(0, 2 * b + 1, 1), dim=1)
 
 
-def banded_spmv_cuda(band, x, bandwidth: int):
-    """Launch K5 on CUDA tensors."""
-    n, nd = band.shape
-    b = int(bandwidth)
-    if nd != 2 * b + 1 or tuple(x.shape) != (n,):
-        raise ValueError(f"band {tuple(band.shape)}, bandwidth {b}, x "
-                         f"{tuple(x.shape)}")
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
-    _check_cuda(x, floats=[("band", band)])
+TILE = 32  # K5 rows per tile, one warp (kTile in csrc/spmv.cu)
+
+
+class BandedSpMVPlan:
+    """K5's layout of one band (n, 2b+1) in one dtype: the rows cut into
+    tiles of TILE, and per tile only the diagonals d whose TILE values are
+    not all zero, in increasing d.  Built with torch ops on the band's
+    device (one host sync, for the segment count): tile_ptr (n_tiles + 1,)
+    int32, diag (segments,) int32 and vals (segments, TILE) in the band's
+    dtype, one segment's values contiguous (rows past n are zero)."""
+
+    def __init__(self, band, bandwidth: int):
+        n, nd = band.shape
+        b = int(bandwidth)
+        if nd != 2 * b + 1:
+            raise ValueError(f"band {tuple(band.shape)} does not have 2b+1 "
+                             f"columns for bandwidth {b}")
+        if n + b + TILE > _I32_MAX:
+            raise ValueError("band too large for int32 row indices")
+        self.bandwidth, self.n = b, n
+        self.n_tiles = -(-n // TILE)
+        dev = band.device
+        nz = torch.zeros((self.n_tiles * TILE, nd), dtype=torch.bool,
+                         device=dev)
+        nz[:n] = band != 0
+        # row-major order: tiles in turn, d increasing within a tile
+        tile, d = torch.nonzero(nz.view(self.n_tiles, TILE, nd).any(1),
+                                as_tuple=True)
+        if tile.numel() > _I32_MAX:
+            raise ValueError("too many band segments for int32")
+        rows = tile[:, None] * TILE + torch.arange(TILE, device=dev)
+        self.vals = torch.where(
+            rows < n, band[rows.clamp(max=n - 1), d[:, None]],
+            torch.zeros((), dtype=band.dtype, device=dev)).contiguous()
+        ptr = torch.zeros(self.n_tiles + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(torch.bincount(tile, minlength=self.n_tiles), 0,
+                     out=ptr[1:])
+        self.tile_ptr, self.diag = ptr.to(torch.int32), d.to(torch.int32)
+
+
+def banded_spmv_cuda(plan: BandedSpMVPlan, x):
+    """Launch K5 on CUDA tensors: the banded product from the plan's
+    segments (the plan in x's dtype, on x's device)."""
+    if tuple(x.shape) != (plan.n,):
+        raise ValueError(f"x {tuple(x.shape)}, want ({plan.n},)")
+    _check_cuda(x, floats=[("vals", plan.vals)],
+                ints=[("tile_ptr", plan.tile_ptr), ("diag", plan.diag)])
+    y = torch.empty(plan.n, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        _launch("K5", "banded_spmv", x.dtype, band.data_ptr(),
-                x.data_ptr(), y.data_ptr(), n, b)
+        _launch("K5", "banded_spmv", x.dtype, plan.tile_ptr.data_ptr(),
+                plan.diag.data_ptr(), plan.vals.data_ptr(), x.data_ptr(),
+                y.data_ptr(), plan.n, plan.bandwidth)
     return y
 
 
 def banded_spmv(band, x, bandwidth: int):
-    """Banded SpMV (band and x in the same RCM order): K5 on CUDA
-    tensors, the plain version on CPU tensors."""
+    """Banded SpMV (band and x in the same RCM order): K5 on CUDA tensors,
+    the plain version (the dense band) on CPU tensors.  On CUDA tensors it
+    builds a plan first, which reads the whole band once and syncs the
+    host once: a caller that multiplies one band more than once keeps a
+    `BandedSpMVPlan` and calls `banded_spmv_cuda(plan, x)`."""
     if x.device.type == "cpu":
         return banded_spmv_plain(band, x, bandwidth)
-    return banded_spmv_cuda(band, x.contiguous(), bandwidth)
+    return banded_spmv_cuda(BandedSpMVPlan(band, bandwidth), x.contiguous())

@@ -36,9 +36,10 @@ TOL = 1e-12
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _load_pallas_spmv():
+def _load(name, *path):
+    """A script of the repo (not a package module) as a module."""
     spec = importlib.util.spec_from_file_location(
-        "pallas_spmv", os.path.join(REPO, "experiments", "pallas_spmv.py"))
+        name, os.path.join(REPO, *path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -63,7 +64,8 @@ def ops():
                 test=V), "u")
     rng = np.random.default_rng(0)
     x = rng.normal(size=V.n_dofs)
-    return dict(jA=jA, A=A, x=x, n=V.n_dofs, ps=_load_pallas_spmv(),
+    return dict(jA=jA, A=A, x=x, n=V.n_dofs,
+                ps=_load("pallas_spmv", "experiments", "pallas_spmv.py"),
                 free=~np.isin(np.arange(V.n_dofs), V.locate_dofs_geometrical(
                     lambda p: np.isclose(p[0], 0) | np.isclose(p[0], 1))))
 
@@ -171,6 +173,72 @@ def test_banded_matches_jax_and_pallas_interpret(ops, constrained):
         assert _rel(y.numpy(), y_ref[perm]) < TOL
 
 
+def _replay_k5(plan, x, n, b):
+    """K5's loop in numpy, in f64, from the plan's arrays: per tile, per
+    lane (row 32 t + r), the tile's segments in order, x zero outside
+    [0, n)."""
+    ptr, diag = plan.tile_ptr.numpy(), plan.diag.numpy()
+    vals = plan.vals.numpy().astype(np.float64)
+    T = spmv.TILE
+    y = np.zeros((len(ptr) - 1) * T)
+    for t in range(len(ptr) - 1):
+        assert np.all(np.diff(diag[ptr[t]:ptr[t + 1]]) > 0)
+        for r in range(T):
+            for j in range(ptr[t], ptr[t + 1]):
+                col = t * T + r + diag[j] - b
+                if 0 <= col < n:
+                    y[t * T + r] += vals[j, r] * x[col]
+    return y[:n]
+
+
+def _check_plan(band, b, x):
+    """Build the plan on CPU tensors, check its layout, replay it and hold
+    it to the plain dense product (in f64) at TOL."""
+    n, nd = band.shape
+    plan = spmv.BandedSpMVPlan(torch.as_tensor(band), b)
+    assert plan.tile_ptr.dtype == plan.diag.dtype == torch.int32
+    assert plan.vals.dtype == torch.as_tensor(band).dtype
+    T = spmv.TILE
+    n_tiles = -(-n // T)
+    assert plan.vals.shape == (len(plan.diag), T)
+    # the segments are exactly the (tile, d) whose values are not all zero
+    pad = np.zeros((n_tiles * T, nd), bool)
+    pad[:n] = band != 0
+    want = np.nonzero(pad.reshape(n_tiles, T, nd).any(1))
+    ptr = plan.tile_ptr.numpy()
+    np.testing.assert_array_equal(np.repeat(np.arange(n_tiles),
+                                            np.diff(ptr)), want[0])
+    np.testing.assert_array_equal(plan.diag.numpy(), want[1])
+    assert int((plan.vals != 0).sum()) == int((band != 0).sum())
+    y = _replay_k5(plan, x, n, b)
+    y_ref = spmv.banded_spmv_plain(torch.as_tensor(band, dtype=torch.float64),
+                                   torch.as_tensor(x), b).numpy()
+    assert _rel(y, y_ref) < TOL
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+def test_k5_plan_replays_the_product(ops, constrained):
+    """K5's segment plan of the nel=8 RCM band, replayed as the kernel's
+    loop, against the plain dense product."""
+    free = ops["free"] if constrained else None
+    band, b, perm = spmv.banded_from_element_matrix(ops["A"], free=free)
+    _check_plan(band.numpy(), b, ops["x"][perm])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k5_plan_edge_cases(dtype):
+    """K5's plan of synthetic bands: ragged last tiles, b = 0, 1 and
+    n - 1, whole diagonals zero in some tiles, an all-zero row."""
+    synthetic_band = _load("chip_smoke", "chip_smoke.py").synthetic_band
+    rng = np.random.default_rng(5)
+    for n in (1, 31, 32, 33, 100):
+        for b in sorted({0, 1, n - 1}):
+            band = synthetic_band(n, b, rng).astype(dtype)
+            _check_plan(band, b, rng.standard_normal(n))
+    with pytest.raises(ValueError, match="2b\\+1"):
+        spmv.BandedSpMVPlan(torch.zeros((4, 3)), 2)
+
+
 def test_cg_through_the_ell_operator(ops):
     """The self-test's CG (experiments/pallas_spmv.py:313-320): the ELL
     operator shifted to SPD, solved to 1e-10, against the JAX solve."""
@@ -203,7 +271,7 @@ def test_cuda_wrappers_refuse_cpu_tensors(ops):
     with pytest.raises(ValueError, match="CUDA"):
         spmv.ell_spmv_cuda(vals, cols, x)
     with pytest.raises(ValueError, match="CUDA"):
-        spmv.banded_spmv_cuda(band, x, bw)
+        spmv.banded_spmv_cuda(spmv.BandedSpMVPlan(band, bw), x)
     ops["A"].matvec(x), ops["A"].rmatvec(x)
     spmv.ell_spmv(vals, cols, x), spmv.banded_spmv(band, x, bw)
     assert spmv.launches == before
