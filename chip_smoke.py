@@ -49,17 +49,41 @@ non-zero without the final line:
    launches against BiCGStab's iterations, wall times, and the
    manufactured-solution error norm; then SLSQP(maxiter=3) at nel=32 and
    the card against CPU tensors at nel=64.
+8. bench.py's refine-4 configuration (Shamanskii factor reuse,
+   refactor_every=3): loss (1e-7) and gradient (1e-6) against the JAX
+   package's values in oracles/motor_oracle.npz, 7 factors and 170 K1 +
+   170 K2 launches per step, the warm step beside refactor_every=1's.
+9. bench.py's refine-1 rung (refactor_every=3 with freeze_operator) and
+   reuse alone at refine 1: the oracle (1e-8, 1e-6), 7 factors, 7 (17
+   without freezing) Jacobian assemblies and 170 K1/K2 launches per step,
+   warm steps, the frozen step against CPU tensors (1e-10, 1e-7).
+10. refine 1 with factorization="lu" (no sweep) and design_space="basis",
+   each against the oracle.
+11. the eager graph-API model (build_motor_model, Simulator.run,
+   objective_gradient) at refine 1 with LinearSolver("scipy") and with
+   LinearSolver("block_thomas"), whose K1/K2 launches across the call must
+   be > 0: outputs (torque, areas, losses; 1e-8), the |B| field (1e-8) and
+   the gradient (1e-6) against the oracle.
+12. the imported unstructured mesh (write_motor_msh, import_mesh) through
+   the step in the oracle configuration, against the oracle, with K1/K2
+   against plain on its factors.
+   In phases 4 and 8-12 the K1/K2 counts are set to 0 just before each
+   path and read just after; the factors, Jacobian assemblies and block
+   solves are counted by the step profiler's layer ranges.
 
-It prints a JSON line describing the kernels, and last
+Each phase prints its wall seconds.  It prints a JSON line describing
+the kernels (K1/K2 with their launches on every motor path), and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -70,8 +94,10 @@ from torch.autograd import DeviceType
 
 import femo_tpu_torch
 from femo_tpu_torch import native
+from femo_tpu_torch.mesh.gmsh_io import import_mesh, read_association_table
 from femo_tpu_torch.models.motor.model import (
-    build_motor_jit_step, edge_delta_design_space)
+    build_motor_jit_step, build_motor_model, edge_delta_design_space)
+from femo_tpu_torch.models.motor.unstructured import write_motor_msh
 from femo_tpu_torch.models.motor.pde import source_tables
 from femo_tpu_torch.fea.assemble import assemble_matrix, compile_form
 from femo_tpu_torch.fea.forms import FormDef, dot, dx, grad
@@ -84,7 +110,8 @@ from femo_tpu_torch.models.poisson import build_fea, on_boundary
 from femo_tpu_torch.ops import bt_sweeps, spmv
 from femo_tpu_torch.ops.block_tridiag import BlockTridiagonalMatrix
 from femo_tpu_torch.solvers.krylov import cg
-from femo_tpu_torch.solvers.linear import KrylovFactorization
+from femo_tpu_torch.solvers.linear import KrylovFactorization, LinearSolver
+from femo_tpu_torch.tools.profile_step import layer_ranges
 
 # experiments/motor_latency_oracle.json (the JAX package, f64, CPU)
 ORACLE = {1: 28.709006394182538, 4: 30.388014626154067}
@@ -217,29 +244,56 @@ def cuda_ms(fn, reps=50, warm=5):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, kernel=None, per_call=1, reps=10, tries=5):
     """Device time of one call in ms: the summed durations of the kernels
     and copies that `reps` calls run, traced with torch.profiler, over
     reps.  Unlike cuda_ms it leaves out the host time between launches,
-    which is most of a call whose kernels take microseconds.  A trace that
-    shows no device work at all (the profiler missed it) is taken again,
-    up to three times."""
+    which is most of a call whose kernels take microseconds.  The profiler
+    can miss launches, most often in its first traces of a new shape, so
+    it traces `reps` calls once as a warm-up, drops them and traces
+    `reps` more, and keeps that trace only when it holds every launch:
+    each device event name `reps` times a whole number of times, and the
+    events named after `kernel` exactly per_call * reps times.  Otherwise
+    it traces again; after `tries` incomplete traces the time is not
+    measured (None), never read from an incomplete trace."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False))
-        if us > 0:
-            return us / reps / 1e3
-        print("  (the profiler saw no device time; tracing again)")
-    raise AssertionError("the profiler saw no device time in 3 traces")
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            for _ in range(2):  # the warm-up cycle, then the traced one
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        counts = collections.Counter(e.name for e in evs)
+        named = sum(c for name, c in counts.items()
+                    if kernel is not None and kernel in name)
+        if (evs and all(c % reps == 0 for c in counts.values())
+                and (kernel is None or named == per_call * reps)):
+            return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+        odd = [(n[:60], c) for n, c in counts.items() if c % reps]
+        print(f"  (incomplete trace: {len(evs)} device events in {reps} "
+              f"calls{f', {named} of {kernel}' if kernel else ''}, counts "
+              f"not a multiple of {reps}: {odd[:3]})")
+        time.sleep(0.2)
+    print(f"  device time of {kernel or 'a call'}: not measured ({tries} "
+          "incomplete traces)")
+    return None
+
+
+def fmt_ms(x, digits=4):
+    """A time in ms, or "not measured" for None."""
+    return "not measured" if x is None else f"{x:.{digits}f} ms"
+
+
+def ratio(a, b):
+    """a / b, or None when either time was not measured."""
+    return None if a is None or b is None else a / b
 
 
 def jacobian_factor(info, which, dv0, iq0, em_load_steps):
@@ -292,36 +346,42 @@ def time_sweeps(fac, bb, label):
         "K2": lambda: bt_sweeps.bwd_sweep_cuda(fac.C, z),
         "K2_plain": lambda: bt_sweeps.bwd_sweep_plain(fac.C, z),
     }
-    t = {k: cuda_ms(fn) for k, fn in fns.items()}
-    t.update({f"{k}_device": device_ms(fn) for k, fn in fns.items()})
     nb, B = bb.shape
     s = bb.element_size()
     # each input read once, each output written once; 2 B^2 flops a block
-    t["K1_bound"] = bound_ms((2 * nb * B * B + 2 * nb * B) * s,
-                             4 * nb * B * B, bb.dtype)
-    t["K2_bound"] = bound_ms((nb * B * B + 2 * nb * B) * s,
-                             2 * nb * B * B, bb.dtype)
+    t = {"K1_bound": bound_ms((2 * nb * B * B + 2 * nb * B) * s,
+                              4 * nb * B * B, bb.dtype),
+         "K2_bound": bound_ms((nb * B * B + 2 * nb * B) * s,
+                              2 * nb * B * B, bb.dtype)}
+    t.update({k: cuda_ms(fn) for k, fn in fns.items()})
+    names = {"K1": "bt_fwd_kernel", "K2": "bt_bwd_kernel"}
+    t.update({f"{k}_device": device_ms(fn, names.get(k))
+              for k, fn in fns.items()})
     print(f"  time, {label} nb={nb} B={B} f64 (median of 50, CUDA events): "
           f"K1 {t['K1']:.4f} ms vs plain {t['K1_plain']:.4f} ms, bound "
           f"{t['K1_bound'][0]:.4f} ms; K2 {t['K2']:.4f} ms vs plain "
           f"{t['K2_plain']:.4f} ms, bound {t['K2_bound'][0]:.4f} ms")
     print(f"  device time per call (profiler, 10 calls): K1 "
-          f"{t['K1_device']:.4f} ms vs plain {t['K1_plain_device']:.4f} ms; "
-          f"K2 {t['K2_device']:.4f} ms vs plain {t['K2_plain_device']:.4f} ms")
+          f"{fmt_ms(t['K1_device'])} vs plain "
+          f"{fmt_ms(t['K1_plain_device'])}; K2 {fmt_ms(t['K2_device'])} vs "
+          f"plain {fmt_ms(t['K2_plain_device'])}")
     phases = {"K1": 2 * nb - 1, "K2": max(nb - 1, 1)}
     for k in ("K1", "K2"):
         plan = bt_sweeps.sweep_plan(k, nb, B, bb.dtype,
                                      bt_sweeps._sms(bb.device.index))
         t[f"{k}_geometry"] = dict(ctas=plan.ctas, rows=plan.rows,
                                   stages=plan.stages, smem=plan.smem)
-        t[f"{k}_us_per_phase"] = t[f"{k}_device"] * 1e3 / phases[k]
-        share = t[f"{k}_bound"][0] / t[f"{k}_device"]
+        dev = t[f"{k}_device"]
+        t[f"{k}_us_per_phase"] = ratio(dev, phases[k] / 1e3)
+        share = ratio(t[f"{k}_bound"][0], dev)
+        speed = ratio(t[f"{k}_plain_device"], dev)
         print(f"  {k}: G={plan.ctas} CTAs x R={plan.rows} rows, S="
-              f"{plan.stages} stages, {plan.smem} B shared memory; "
-              f"{t[f'{k}_us_per_phase']:.3f} us per dependent phase "
-              f"({phases[k]}); {100 * share:.1f}% of the bound; "
-              f"{t[f'{k}_plain_device'] / t[f'{k}_device']:.2f}x the plain "
-              f"version's speed")
+              f"{plan.stages} stages, {plan.smem} B shared memory"
+              + ("; device time not measured" if share is None else
+                 f"; {t[f'{k}_us_per_phase']:.3f} us per dependent phase "
+                 f"({phases[k]}); {100 * share:.1f}% of the bound")
+              + ("" if speed is None else
+                 f"; {speed:.2f}x the plain version's speed"))
     t["shape"] = dict(label=label, nb=nb, B=B)
     return t
 
@@ -351,27 +411,39 @@ def phase_kernels(info1, dv0, iq0):
     return time_sweeps(fac, bb, "refine-1 mm"), err
 
 
-def timed_step(step, dv, iq):
+def synced(fn):
+    """(wall seconds of fn() between two device syncs, its result)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss, (g_dv, g_iq) = step(dv, iq)
+    out = fn()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, loss, g_dv, g_iq
+    return time.perf_counter() - t0, out
 
 
-def counted_step(step, dv0, iq0):
-    """One step with the kernels' launch counts reset just before it and
-    read just after; each kernel runs once per sweep solve."""
-    for k in bt_sweeps.launches:
-        bt_sweeps.launches[k] = 0
-    out = timed_step(step, dv0, iq0)
+def warm_seconds(step, dv, iq, n):
+    """The least wall time of n more calls of step(dv, iq)."""
+    return min(synced(lambda: step(dv, iq))[0] for _ in range(n))
+
+
+def counted_path(fn, label):
+    """fn() with the K1/K2 counts reset just before and read just after,
+    and the factors, Jacobian assemblies and block solves it ran counted
+    (the step profiler's layer ranges); returns (seconds, fn's result,
+    launches, calls)."""
+    reset(bt_sweeps.launches)
+    with layer_ranges() as lr:
+        t, out = synced(fn)
     launches = dict(bt_sweeps.launches)
-    print(f"  launches in the step: K1 {launches['K1']}, K2 "
-          f"{launches['K2']} (expected {SOLVES_PER_STEP} each)")
-    if launches != {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP}:
-        raise AssertionError(f"kernel launches {launches}, expected "
-                             f"{SOLVES_PER_STEP} each")
-    return out + (launches,)
+    print(f"  {label}: {t:.3f} s; K1 {launches['K1']}, K2 "
+          f"{launches['K2']} launches; {lr.calls['bt.factor']} factors, "
+          f"{lr.calls['assemble.jacobian']} Jacobian assemblies, "
+          f"{lr.calls['bt.solve']} block solves")
+    return t, out, launches, dict(lr.calls)
+
+
+def expect(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label}: {got}, expected {want}")
 
 
 def check_step(refine, loss, g_dv, g_iq, n_dv, rtol):
@@ -390,10 +462,14 @@ def phase_refine1(step, dv0, iq0, info):
     print(f"motor step, refine 1, f64, cuda: mm nb={info['bt']['mm']['nb']} "
           f"B={info['bt']['mm']['B']}, em nb={info['bt']['em']['nb']} "
           f"B={info['bt']['em']['B']}")
-    cold, loss, g_dv, g_iq, launches = counted_step(step, dv0, iq0)
+    cold, (loss, (g_dv, g_iq)), launches, _ = counted_path(
+        lambda: step(dv0, iq0), "first step")
+    expect("K1/K2 launches", launches,
+           {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
     check_step(1, loss, g_dv, g_iq, 576, 1e-8)
-    warm, loss_w, g_dv_w, _ = timed_step(step, dv0, iq0)
-    print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s")
+    warm = warm_seconds(step, dv0, iq0, 3)
+    print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s "
+          "(least of 3)")
 
     step_c, (dv_c, iq_c), _ = build_motor_jit_step(refine=1, device="cpu",
                                                    **ORACLE_CFG)
@@ -408,7 +484,7 @@ def phase_refine1(step, dv0, iq0, info):
           f"{rl:.3e} (tol 1e-10), gradient rel L2 {rg:.3e} (tol 1e-7)")
     if not (rl <= 1e-10 and rg <= 1e-7):
         raise AssertionError("card and CPU steps disagree")
-    return launches
+    return launches, warm
 
 
 def phase_refine4(err):
@@ -421,13 +497,236 @@ def phase_refine4(err):
           f"mm nb={bt['mm']['nb']} B={bt['mm']['B']} bw={bt['mm']['bw']}, "
           f"em nb={bt['em']['nb']} B={bt['em']['B']} bw={bt['em']['bw']}; "
           f"build {t_build:.2f} s")
-    cold, loss, g_dv, g_iq, _ = counted_step(step, dv0, iq0)
+    cold, (loss, (g_dv, g_iq)), launches, _ = counted_path(
+        lambda: step(dv0, iq0), "first step")
+    expect("K1/K2 launches", launches,
+           {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
     check_step(4, loss, g_dv, g_iq, dv0.numel(), 1e-7)
-    warm, _, _, _ = timed_step(step, dv0, iq0)
-    print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s")
+    warm = warm_seconds(step, dv0, iq0, 2)
+    print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s "
+          "(least of 2)")
     return [time_sweeps(fac, bb, f"refine-4 {which}")
             for which, (fac, bb) in check_real_factors(info, dv0, iq0, 4,
-                                                       err).items()]
+                                                       err).items()], warm
+
+
+# ---------------------------------------------------------------------------
+# The motor in the reference's production configuration (bench.py:70-87:
+# Shamanskii factor reuse, refine 1 also with the frozen operator), the
+# dense-LU branch, the 2-dof design space, the eager graph-API model and the
+# imported unstructured mesh, each against the JAX package's f64 values in
+# oracles/motor_oracle.npz
+# ---------------------------------------------------------------------------
+
+MOTOR_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "oracles", "motor_oracle.npz")
+BENCH_CFG = dict(ORACLE_CFG, refactor_every=3)
+# Newton iterations and adjoints per step: 2x3 mesh-motion + 3x3 EM, 2
+NEWTON_ITERS, ADJOINTS = 2 * 3 + 3 * 3, 2
+# factors at refactor_every=3: mesh motion 2 + 1 adjoint, EM 3 + 1
+REUSE_FACTORS = 2 + 1 + 3 + 1
+EAGER_DV = [5e-4, 3e-4]
+EAGER_OUTPUTS = ("loss_sum", "torque", "magnet_area", "winding_area",
+                 "steel_area", "eddy_current_loss", "hysteresis_loss")
+
+
+def motor_oracle():
+    return np.load(MOTOR_ORACLE)
+
+
+def check_oracle(label, loss, g_dv, g_iq, oracle, key, loss_tol, grad_tol):
+    """Loss (relative) and gradient (g_dv, g_iq; relative L2) against the
+    JAX package's values `key` of oracles/motor_oracle.npz."""
+    want_l = float(oracle[f"{key}_loss"])
+    want_g = np.concatenate([oracle[f"{key}_g_dv"],
+                             [float(oracle[f"{key}_g_iq"])]])
+    g = np.concatenate([g_dv.detach().cpu().numpy(), [float(g_iq)]])
+    rl = abs(float(loss) - want_l) / abs(want_l)
+    rg = float(np.linalg.norm(g - want_g) / np.linalg.norm(want_g))
+    print(f"  {label}: loss {float(loss)!r}, JAX {want_l!r}, rel {rl:.3e} "
+          f"(tol {loss_tol:.0e}); gradient ({g.size}) rel L2 {rg:.3e} (tol "
+          f"{grad_tol:.0e})")
+    if not (rl <= loss_tol and rg <= grad_tol and np.all(np.isfinite(g))):
+        raise AssertionError(f"{label} disagrees with the JAX oracle")
+    return rl, rg
+
+
+def phase_refine4_bench(warm_re1):
+    """bench.py's refine-4 configuration (refactor_every=3): the oracle,
+    7 factors and 170 K1 + 170 K2 launches per step, the warm step beside
+    refactor_every=1's in this run."""
+    oracle = motor_oracle()
+    step, (dv0, iq0), info = build_motor_jit_step(refine=4, device="cuda",
+                                                  **BENCH_CFG)
+    print(f"motor step, refine 4, bench.py's configuration "
+          f"(refactor_every=3), f64, cuda: mm nb={info['bt']['mm']['nb']} "
+          f"B={info['bt']['mm']['B']}, em nb={info['bt']['em']['nb']} "
+          f"B={info['bt']['em']['B']}")
+    cold, (loss, (g_dv, g_iq)), launches, calls = counted_path(
+        lambda: step(dv0, iq0), "first step")
+    check_oracle("refine 4, refactor_every=3", loss, g_dv, g_iq, oracle,
+                 "r4_re3", 1e-7, 1e-6)
+    expect("factors per step", calls["bt.factor"], REUSE_FACTORS)
+    expect("K1/K2 launches", launches,
+           {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
+    warm = warm_seconds(step, dv0, iq0, 2)
+    print(f"  warm step {warm:.3f} s (least of 2) at "
+          f"refactor_every=3 vs {warm_re1:.3f} s at refactor_every=1 in "
+          f"this run; {calls['bt.factor']} factors vs "
+          f"{NEWTON_ITERS + ADJOINTS}")
+    return dict(launches=launches, factors=calls["bt.factor"],
+                warm_s=warm, warm_re1_s=warm_re1, first_s=cold)
+
+
+def phase_refine1_bench(warm_re1):
+    """bench.py's refine-1 rung (refactor_every=3 with freeze_operator) and
+    factor reuse alone: the oracle, the counts (7 Jacobian assemblies with
+    the frozen operator, 17 without), the warm steps, and the frozen step
+    on CUDA against CPU tensors."""
+    oracle = motor_oracle()
+    out = {}
+    for key, kw, jac in (("r1_re3", {}, NEWTON_ITERS + ADJOINTS),
+                         ("r1_re3_freeze", dict(freeze_operator=True),
+                          REUSE_FACTORS)):
+        cfg = dict(BENCH_CFG, **kw)
+        step, (dv0, iq0), _ = build_motor_jit_step(refine=1, device="cuda",
+                                                   **cfg)
+        print(f"motor step, refine 1, refactor_every=3"
+              f"{', freeze_operator' if kw else ''}, f64, cuda")
+        cold, (loss, (g_dv, g_iq)), launches, calls = counted_path(
+            lambda: step(dv0, iq0), "first step")
+        check_oracle(key, loss, g_dv, g_iq, oracle, key, 1e-8, 1e-6)
+        expect("factors per step", calls["bt.factor"], REUSE_FACTORS)
+        expect("Jacobian assemblies per step", calls["assemble.jacobian"],
+               jac)
+        expect("K1/K2 launches", launches,
+               {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
+        warm = warm_seconds(step, dv0, iq0, 3)
+        print(f"  warm step {warm:.3f} s (least of 3) vs "
+              f"{warm_re1:.3f} s at refactor_every=1 in this run; "
+              f"{calls['assemble.jacobian']} Jacobian assemblies vs "
+              f"{NEWTON_ITERS + ADJOINTS}")
+        out[key] = dict(launches=launches, factors=calls["bt.factor"],
+                        jacobians=calls["assemble.jacobian"],
+                        warm_s=warm, first_s=cold)
+    step_c, (dv_c, iq_c), _ = build_motor_jit_step(refine=1, device="cpu",
+                                                   **cfg)
+    loss_c, (g_dv_c, g_iq_c) = step_c(dv_c, iq_c)
+    rl = abs(float(loss_c) - float(loss)) / abs(float(loss))
+    rg = rel(torch.cat([g_dv, g_iq.reshape(1)]).cpu(),
+             torch.cat([g_dv_c, g_iq_c.reshape(1)]))
+    print(f"  card vs CPU tensors (frozen operator): loss rel {rl:.3e} (tol "
+          f"1e-10), gradient rel L2 {rg:.3e} (tol 1e-7)")
+    if not (rl <= 1e-10 and rg <= 1e-7):
+        raise AssertionError("card and CPU frozen-operator steps disagree")
+    out["r1_re3"]["warm_re1_s"] = out["r1_re3_freeze"]["warm_re1_s"] = \
+        warm_re1
+    return out
+
+
+def phase_refine1_lu_basis():
+    """The dense-LU branch (edge deltas) and the 2-dof design space (block
+    Thomas), each at refine 1 against the oracle."""
+    oracle = motor_oracle()
+    out = {}
+    for key, kw, solves in (
+            ("r1_lu", dict(ORACLE_CFG, factorization="lu"), 0),
+            ("r1_basis", dict(ORACLE_CFG, design_space="basis"),
+             SOLVES_PER_STEP)):
+        step, (dv0, iq0), _ = build_motor_jit_step(refine=1, device="cuda",
+                                                   **kw)
+        print(f"motor step, refine 1, factorization={kw['factorization']}, "
+              f"design_space={kw['design_space']} ({dv0.numel()} dvs), "
+              "f64, cuda")
+        t, (loss, (g_dv, g_iq)), launches, _ = counted_path(
+            lambda: step(dv0, iq0), "first step")
+        check_oracle(key, loss, g_dv, g_iq, oracle, key, 1e-8, 1e-6)
+        expect("K1/K2 launches", launches, {"K1": solves, "K2": solves})
+        warm = warm_seconds(step, dv0, iq0, 1)
+        print(f"  warm step {warm:.3f} s")
+        out[key] = dict(launches=launches, warm_s=warm, first_s=t)
+    return out
+
+
+def phase_eager_model():
+    """The eager graph model (build_motor_model -> Simulator.run ->
+    objective_gradient) at refine 1 with 3 EM load steps and shape_dv =
+    (5e-4, 3e-4), with LinearSolver("scipy") and with "block_thomas" (every
+    Newton and adjoint solve through K1/K2, counted across the call), each
+    against the JAX package's scipy run."""
+    oracle = motor_oracle()
+    out = {}
+    for method in ("scipy", "block_thomas"):
+        model, d = build_motor_model(
+            refine=1, em_load_steps=3, device="cuda",
+            linear_solver=LinearSolver(method=method))
+        sim = Simulator(model)
+        sim["shape_dv"] = np.array(EAGER_DV)
+        print(f"eager motor model, refine 1, LinearSolver({method!r}), "
+              "f64, cuda: Simulator.run + objective_gradient")
+
+        def run_and_gradient():
+            outs = sim.run()
+            return outs, sim.objective_gradient("loss_sum",
+                                                ["shape_dv", "iq"])
+
+        t, (outs, (val, grads, _)), launches, calls = counted_path(
+            run_and_gradient, "run + objective_gradient")
+        worst = 0.0
+        for k in EAGER_OUTPUTS:
+            want = float(oracle[f"eager_r1_{k}"])
+            worst = max(worst, abs(float(outs[k]) - want) / abs(want))
+        B = outs["B_magnitude"]
+        rb = rel(B, torch.as_tensor(oracle["eager_r1_B_magnitude"],
+                                    device=B.device))
+        print(f"  torque {float(outs['torque']):.10g} N m, areas magnet "
+              f"{float(outs['magnet_area']):.6e}, winding "
+              f"{float(outs['winding_area']):.6e}, steel "
+              f"{float(outs['steel_area']):.6e} m^2; |B| field "
+              f"{tuple(B.shape)}, max {float(B.max()):.4f} T; outputs vs "
+              f"JAX: worst rel {worst:.3e} (tol 1e-8), |B| rel L2 "
+              f"{rb:.3e} (tol 1e-8)")
+        if not (worst <= 1e-8 and rb <= 1e-8):
+            raise AssertionError(f"eager model outputs ({method}) disagree "
+                                 "with the JAX oracle")
+        check_oracle(f"objective_gradient ({method})", val,
+                     grads["shape_dv"], grads["iq"], oracle, "eager_r1",
+                     1e-8, 1e-6)
+        if method == "block_thomas" and not (launches["K1"] > 0
+                                             and launches["K2"] > 0):
+            raise AssertionError(f"block_thomas eager model launched "
+                                 f"{launches}")
+        out[method] = dict(launches=launches, seconds=t,
+                           factors=calls["bt.factor"])
+    return out
+
+
+def phase_unstructured(err):
+    """The step on the unstructured mesh that write_motor_msh(refine=1,
+    seed=0) writes and import_mesh reads back, in the oracle
+    configuration; K1/K2 against plain on its mesh-motion factor."""
+    oracle = motor_oracle()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "motor_u.msh")
+        ini = write_motor_msh(path, refine=1, seed=0)
+        mesh = import_mesh(path)
+        table = read_association_table(ini)
+    step, (dv0, iq0), info = build_motor_jit_step(
+        mesh=mesh, device="cuda", **ORACLE_CFG)
+    bt = info["bt"]
+    print(f"motor step on the imported unstructured mesh (refine 1, seed 0):"
+          f" {mesh.n_cells} cells, {len(table)} named regions, mm "
+          f"nb={bt['mm']['nb']} B={bt['mm']['B']} bw={bt['mm']['bw']}, em "
+          f"nb={bt['em']['nb']} B={bt['em']['B']} bw={bt['em']['bw']}, "
+          f"{dv0.numel()} dvs")
+    t, (loss, (g_dv, g_iq)), launches, _ = counted_path(
+        lambda: step(dv0, iq0), "first step")
+    check_oracle("unstructured_r1", loss, g_dv, g_iq, oracle,
+                 "unstructured_r1", 1e-8, 1e-6)
+    expect("K1/K2 launches", launches,
+           {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
+    check_real_factors(info, dv0, iq0, "unstructured 1", err)
+    return dict(launches=launches, first_s=t)
 
 
 # ---------------------------------------------------------------------------
@@ -584,23 +883,25 @@ def check_k5(label, band, bw, x64, err):
     return plans, ys
 
 
-def time_spmv(name, kern, plain, lib, nbytes, ops):
+def time_spmv(name, kernel, kern, plain, lib, nbytes, ops):
     """Kernel, plain and library times of one SpMV (f64): medians of 50
     CUDA-event timings of one call, and the profiler's device time per
-    call; the bound on nbytes and ops."""
+    call (`kernel` is the CUDA kernel's name, which the kernel's trace must
+    hold once a call); the bound on nbytes and ops."""
     check_rel(f"torch.sparse.mm vs {name}", lib()[:, 0], kern(),
               SPMV_TOL[torch.float64])
+    bound = bound_ms(nbytes, ops, torch.float64)
     r = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-             library_ms=cuda_ms(lib), device_ms=device_ms(kern),
+             library_ms=cuda_ms(lib), bound=bound,
+             device_ms=device_ms(kern, kernel),
              plain_device_ms=device_ms(plain),
-             library_device_ms=device_ms(lib),
-             bound=bound_ms(nbytes, ops, torch.float64))
+             library_device_ms=device_ms(lib))
     print(f"  time {name}, f64 (median of 50, CUDA events): kernel "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
           f"torch.sparse.mm {r['library_ms']:.4f} ms; device time per "
-          f"call (profiler, 10 calls): kernel {r['device_ms']:.4f} ms, "
-          f"plain {r['plain_device_ms']:.4f} ms, torch.sparse.mm "
-          f"{r['library_device_ms']:.4f} ms; bound {r['bound'][0]:.4f} "
+          f"call (profiler, 10 calls): kernel {fmt_ms(r['device_ms'])}, "
+          f"plain {fmt_ms(r['plain_device_ms'])}, torch.sparse.mm "
+          f"{fmt_ms(r['library_device_ms'])}; bound {r['bound'][0]:.4f} "
           f"ms ({nbytes / 1e6:.2f} MB)")
     return r
 
@@ -615,7 +916,8 @@ def time_k5(label, band, bw, plan, lib_csr, xp):
     nnz, tiny = band_nonzeros(band)
     n, vec = band.shape[0], 2 * band.shape[0] * 8
     P = torch_csr(lib_csr)
-    r = time_spmv(f"K5 ({label})", lambda: spmv.banded_spmv_cuda(plan, xp),
+    r = time_spmv(f"K5 ({label})", "banded_segment_kernel",
+                  lambda: spmv.banded_spmv_cuda(plan, xp),
                   lambda: spmv.banded_spmv_plain(band, xp, bw),
                   lambda: torch.sparse.mm(P, xp[:, None]), nnz * 8 + vec,
                   2 * nnz)
@@ -630,18 +932,20 @@ def time_k5(label, band, bw, plan, lib_csr, xp):
              plan_build_ms=1e3 * statistics.median(
                  synced(build)[0] for _ in range(5)),
              plan_build_device_ms=device_ms(build))
+    reached = ratio(r["bound"][0], r["device_ms"])
     print(f"  K5 ({label}): band {nnz} nonzeros, {tiny} of them at most "
-          f"1e-14 of the largest; {r['device_ms'] * 1e3:.2f} us of device "
-          f"time vs torch.sparse.mm {r['library_device_ms'] * 1e3:.2f} us "
+          f"1e-14 of the largest; device time {fmt_ms(r['device_ms'])} vs "
+          f"torch.sparse.mm {fmt_ms(r['library_device_ms'])} "
           f"(CSR, {r['csr_nnz']} stored entries); bound on the nonzeros, x "
           f"and y {r['bound'][0] * 1e3:.3f} us ({(nnz * 8 + vec) / 1e6:.2f} "
-          f"MB, {100 * r['bound'][0] / r['device_ms']:.0f}% of it reached), "
+          f"MB, {'?' if reached is None else f'{100 * reached:.0f}'}% of "
+          "it reached), "
           f"on what K5 reads {r['plan_bound_ms'] * 1e3:.3f} us "
           f"({(s['bytes'] + vec) / 1e6:.2f} MB), on the dense band "
           f"{r['dense_bound_ms'] * 1e3:.1f} us; plan "
           f"{s['per_tile_mean']:.2f} segments per tile (max "
           f"{s['per_tile_max']}), {s['bytes'] / 1e6:.3f} MB, built in "
-          f"{r['plan_build_ms']:.3f} ms ({r['plan_build_device_ms']:.4f} ms "
+          f"{r['plan_build_ms']:.3f} ms ({fmt_ms(r['plan_build_device_ms'])} "
           f"of device time)")
     return r
 
@@ -794,8 +1098,11 @@ def phase_spmv():
     ops = {"K4": 2 * ne * nr * nc, "K4T": 2 * ne * nr * nc,
            "K3": 2 * ell.vals.numel()}
     saved = dict(spmv.launches)
-    t = {name: time_spmv(name, kern[name], plain[name], lib[name],
-                         nbytes[name], ops[name])
+    kernel = {"K4": "element_spmv_kernel", "K4T": "element_spmv_kernel",
+              "K3": "ell_thread_kernel" if ell.vals.shape[1] <= 8
+              else "ell_warp_kernel"}  # csrc/spmv.cu's choice
+    t = {name: time_spmv(name, kernel[name], kern[name], plain[name],
+                         lib[name], nbytes[name], ops[name])
          for name in ("K4", "K4T", "K3")}
     # K5 on the four nel=260 bands; the W1 stiffness band's numbers are
     # K5's in the kernels line
@@ -859,14 +1166,6 @@ def w1_model(nel, device):
     model.add_design_variable("f")
     model.add_objective("l2_functional", scaler=1e5)
     return Simulator(model), fea, d
-
-
-def synced(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, out
 
 
 def phase_w1():
@@ -980,7 +1279,7 @@ def kernel_entry(key, name, source, replaces, launches, err, t):
     """One kernel's entry of the kernels line.  ms, plain_ms and
     library_ms are medians of CUDA-event timings of single calls; the
     *device_ms keys are the profiler's device time per call, without the
-    host time between launches."""
+    host time between launches (null: not measured, see device_ms)."""
     ms, by = t["bound"]
     return {"name": f"{name} ({key})", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1002,21 +1301,51 @@ def sweep_shape(k, t):
                 us_per_phase=t[f"{k}_us_per_phase"])
 
 
+def timed_phase(name, seconds, fn, *args):
+    """fn(*args), its wall seconds kept under `name` and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds[name] = time.perf_counter() - t0
+    print(f"[phase {name}: {seconds[name]:.1f} s]")
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
+    seconds = {}
     femo_tpu_torch.set_precision("float64")
-    card = phase_device()
-    phase_build()
+    card = timed_phase("device", seconds, phase_device)
+    timed_phase("build", seconds, phase_build)
     step1, (dv0, iq0), info1 = build_motor_jit_step(refine=1, device="cuda",
                                                     **ORACLE_CFG)
-    t, err = phase_kernels(info1, dv0, iq0)
-    launches = phase_refine1(step1, dv0, iq0, info1)
-    t4 = phase_refine4(err)
-    print(f"kernels vs plain on the step's factors (refine 1 and 4): max "
-          f"|kernel - plain| K1 {err['K1']:.3e}, K2 {err['K2']:.3e}")
-    t_spmv, err_spmv, selftest = phase_spmv()
-    w1_launches, _ = phase_w1()
-    phase_w1_slsqp()
-    phase_w1_card_vs_cpu()
+    t, err = timed_phase("kernels", seconds, phase_kernels, info1, dv0, iq0)
+    launches, warm1 = timed_phase("refine1", seconds, phase_refine1, step1,
+                                  dv0, iq0, info1)
+    t4, warm4 = timed_phase("refine4", seconds, phase_refine4, err)
+    t_spmv, err_spmv, selftest = timed_phase("spmv", seconds, phase_spmv)
+    w1_launches, _ = timed_phase("w1", seconds, phase_w1)
+    timed_phase("w1_slsqp", seconds, phase_w1_slsqp)
+    timed_phase("w1_card_vs_cpu", seconds, phase_w1_card_vs_cpu)
+    paths = {"refine1_oracle": launches}
+    r4b = timed_phase("refine4_bench", seconds, phase_refine4_bench, warm4)
+    paths["refine4_refactor3"] = r4b["launches"]
+    r1b = timed_phase("refine1_bench", seconds, phase_refine1_bench, warm1)
+    paths["refine1_refactor3"] = r1b["r1_re3"]["launches"]
+    paths["refine1_refactor3_freeze"] = r1b["r1_re3_freeze"]["launches"]
+    lb = timed_phase("refine1_lu_basis", seconds, phase_refine1_lu_basis)
+    paths["refine1_lu"] = lb["r1_lu"]["launches"]
+    paths["refine1_basis"] = lb["r1_basis"]["launches"]
+    eager = timed_phase("eager_model", seconds, phase_eager_model)
+    paths["eager_model_scipy"] = eager["scipy"]["launches"]
+    paths["eager_model_block_thomas"] = eager["block_thomas"]["launches"]
+    un = timed_phase("unstructured", seconds, phase_unstructured, err)
+    paths["unstructured_refine1"] = un["launches"]
+    print(f"kernels vs plain on the steps' factors (refine 1 and 4, "
+          f"unstructured): max |kernel - plain| K1 {err['K1']:.3e}, K2 "
+          f"{err['K2']:.3e}")
+    print("motor summary: " + json.dumps({
+        "refine4_refactor3": r4b, "refine1": r1b, "lu_basis": lb,
+        "eager_model": eager, "unstructured": un}))
 
     bt, sp = "femo_tpu_torch/csrc/bt_sweeps.cu", "femo_tpu_torch/csrc/spmv.cu"
     ps = "experiments/pallas_spmv.py"
@@ -1026,7 +1355,8 @@ def main():
                      device_ms=t[f"{k}_device"],
                      plain_device_ms=t[f"{k}_plain_device"],
                      library_device_ms=None, bound=t[f"{k}_bound"])),
-        shapes=[sweep_shape(k, ts) for ts in [t] + t4])
+        shapes=[sweep_shape(k, ts) for ts in [t] + t4],
+        launches_by_path={p: n[k] for p, n in paths.items()})
         for k, name, line in (("K1", "bt_fwd_sweep", 60),
                               ("K2", "bt_bwd_sweep", 76))]
     rows += [kernel_entry(k, name, sp, f"{ps}:{line}", n, err_spmv[k],
@@ -1047,6 +1377,8 @@ def main():
         dict({k: v for k, v in r.items() if k != "bound"},
              bound_ms=r["bound"][0], bound_by=r["bound"][1])
         for r in t_spmv["K5_bands"]]
+    print(f"phase seconds: {json.dumps(seconds)}; "
+          f"{time.perf_counter() - t_start:.1f} s in all")
     print(card)  # again near the end, where a cut output still shows it
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Assembly engine: gather -> per-entity kernel -> index_add scatter
-(port of femo_tpu/fea/assemble.py, cell and interior-facet terms on
-triangles — what the motor forms reach).
+(port of femo_tpu/fea/assemble.py: cell terms, and interior- and
+exterior-facet terms on triangles).
 
 * Topology and tabulation are precomputed host-side in numpy and copied
   to the form's device once.
@@ -16,8 +16,9 @@ triangles — what the motor forms reach).
   CUDA tensors (ops/spmv.py); each term keeps the kernels' row-owner
   maps of its pattern, built at first use.
 
-Not ported (raise NotImplementedError): exterior-facet terms, Hessian
-tables (Hermite elements), manifold cells, and the chunked entity loop.
+Not ported (raise NotImplementedError): Hessian tables (Hermite
+elements), manifold cells, facet terms of other cells than triangles, and
+the chunked entity loop.
 """
 
 from __future__ import annotations
@@ -127,8 +128,6 @@ class _Term:
         for V in spaces.values():
             if V.element.has_hessian_tab():
                 raise NotImplementedError("Hessian tables are not ported")
-        if self.domain == "exterior_facet":
-            raise NotImplementedError("exterior-facet terms are not ported")
 
         qdeg = integral.qdeg or form.default_qdeg
         geo = geometry_element(mesh.cell_type)
@@ -167,11 +166,11 @@ class _Term:
             self.gdofs0 = {n: ti(d) for n, d in self.dofs0.items()}
             return
 
-        if self.domain != "interior_facet":
+        if self.domain not in ("interior_facet", "exterior_facet"):
             raise ValueError(f"unknown integral domain {self.domain!r}")
         if mesh.cell_type != "triangle":
             raise NotImplementedError(
-                "interior-facet terms are ported for triangles only")
+                "facet terms are ported for triangles only")
         fqp, fqw = cell_rule("interval", qdeg)
         self.qw = tf(fqw)
         # variants: every edge of the reference triangle in both
@@ -197,7 +196,8 @@ class _Term:
                      for name, V in spaces.items()}
         self.Ng, self.dNg = tab_variants(geo)
 
-        fids = mesh.interior_facets
+        fids = (mesh.interior_facets if self.domain == "interior_facet"
+                else mesh.exterior_facets)
         if integral.tag is not None:
             sel = np.isin(mesh.facet_tags[fids], np.atleast_1d(integral.tag))
             fids = fids[sel]
@@ -217,23 +217,27 @@ class _Term:
             return cells.astype(np.int32), lf * 2 + orient
 
         ct = mesh.cell_tags
+        # owning-cell subdomain tags (g.ctag), for material-dispatched
+        # facet terms
+        zeros = np.zeros(self.n_ent, np.int32)
         self.cells0, var0 = side_data(0)
-        self.cells1, var1 = side_data(1)
-        self.var0, self.var1 = ti(var0), ti(var1)
+        self.var0 = ti(var0)
         self.coords0 = tf(mesh.coords[mesh.cells[self.cells0]])
-        self.coords1 = tf(mesh.coords[mesh.cells[self.cells1]])
         self.dofs0 = {n: V.dofmap[self.cells0] for n, V in spaces.items()}
-        self.dofs1 = {n: V.dofmap[self.cells1] for n, V in spaces.items()}
         self.gdofs0 = {n: ti(d) for n, d in self.dofs0.items()}
-        self.gdofs1 = {n: ti(d) for n, d in self.dofs1.items()}
+        self.ctag0 = ti(ct[self.cells0] if ct is not None else zeros)
         self.h = tf(mesh.cell_sizes()[self.cells0])
         self.tag = ti(mesh.facet_tags[fids])
-        # owning-cell subdomain tags, for material-dispatched facet terms
-        zeros = np.zeros(self.n_ent, np.int32)
-        self.ctag0 = ti(ct[self.cells0] if ct is not None else zeros)
-        self.ctag1 = ti(ct[self.cells1] if ct is not None else zeros)
         # side-0 cell centroids orient the facet normal outward
         self.cent0 = tf(mesh.coords[mesh.cells[self.cells0]].mean(axis=1))
+        if self.domain == "exterior_facet":
+            return
+        self.cells1, var1 = side_data(1)
+        self.var1 = ti(var1)
+        self.coords1 = tf(mesh.coords[mesh.cells[self.cells1]])
+        self.dofs1 = {n: V.dofmap[self.cells1] for n, V in spaces.items()}
+        self.gdofs1 = {n: ti(d) for n, d in self.dofs1.items()}
+        self.ctag1 = ti(ct[self.cells1] if ct is not None else zeros)
 
     # -- kernel building ------------------------------------------------------
 
@@ -322,6 +326,44 @@ class _Term:
 
             return kernel
 
+        if self.domain == "exterior_facet":
+            def kernel(locals_, coords_e, var_e, cent_e, h_e, tag_e,
+                       ctag_e):
+                x, _, K, Jg = self._geometry(
+                    coords_e, self.Ng[var_e], self.dNg[var_e])
+                nrm, scale = self._facet_geom(Jg, self.Tref[var_e], x,
+                                              cent_e)
+                dNphys = {n: torch.einsum("qst,qtg->qsg",
+                                          tabs[n].dN[var_e], K)
+                          for n in all_names}
+
+                def total(v_e):
+                    qvals = {n: self._qp_values(tabs[n], tabs[n].N[var_e],
+                                                dNphys[n], locals_[n])
+                             for n in names}
+                    if test_name:
+                        tt = tabs[test_name]
+                        qvals["v"] = self._qp_values(
+                            tt, tt.N[var_e], dNphys[test_name], v_e)
+
+                    def at_qp(qv, x_q, n_q):
+                        w = SimpleNamespace(
+                            **{n: Q(*qv[n]) for n in keys},
+                            **{n: Q(locals_[n]) for n in gnames})
+                        g = SimpleNamespace(x=x_q, h=h_e, tag=tag_e,
+                                            ctag=ctag_e, n=n_q)
+                        r = integral.fn(w, g)
+                        return r.val if isinstance(r, Q) else r
+
+                    vals = vmap(at_qp)(qvals, x, nrm)
+                    return torch.sum(self.qw * scale * vals)
+
+                if test_name is None:
+                    return total(None)
+                return fgrad(total)(self._seed(test_name))
+
+            return kernel
+
         def kernel(locals2, coords0_e, coords1_e, var0_e, var1_e,
                    cent_e, h_e, tag_e, ctag0_e, ctag1_e):
             x, _, K0, Jg0 = self._geometry(
@@ -371,6 +413,9 @@ class _Term:
     def _entity_args(self):
         if self.domain == "cell":
             return (self.coords0, self.h, self.tag)
+        if self.domain == "exterior_facet":
+            return (self.coords0, self.var0, self.cent0, self.h, self.tag,
+                    self.ctag0)
         return (self.coords0, self.coords1, self.var0, self.var1,
                 self.cent0, self.h, self.tag, self.ctag0, self.ctag1)
 

@@ -5,9 +5,10 @@ The same registry dicts (inputs_dict / states_dict / outputs_dict /
 outputs_field_dict), reference flags (PDE_SOLVER, REPORT, record,
 initialize, linear_problem, custom_solve, opt_iter, initial_solve) and
 method names as the JAX package.  Each state becomes an ImplicitSolveOp
-(graph/implicit.py), built at its first solve.  Field outputs (the JAX
-package's `project.py`) and solve_mode="jit_dense" are not ported and
-raise.
+(graph/implicit.py), built at its first solve, in `solve_mode` "eager"
+(host Newton with the LinearSolver) or "jit_dense" (fixed-count dense-LU
+Newton).  Field outputs are projected to CG1 (fea/project.py) by the
+FEAModel.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ class FEA:
         self.record = False
         self.recorder_path = "records"
         self.linear_problem = False
-        self.solve_mode = "eager"  # the only mode ported
+        self.solve_mode = "eager"  # "eager" | "jit_dense"
 
         # solver knobs beyond the reference
         self.linear_solver = LinearSolver()
@@ -104,8 +105,19 @@ class FEA:
 
     def add_field_output(self, name: str, form: FormDef,
                          arguments: Sequence[str], record: bool = False):
-        raise NotImplementedError(
-            "field outputs (projection to CG1) are not ported")
+        """Project a form's integrand to CG1: `form` is a 1-form against a
+        CG1 test space, on whose device the output lives."""
+        if form.test is None:
+            raise ValueError("a field output's form needs its CG1 test "
+                             "space")
+        V = FunctionSpace(self.mesh, ("CG", 1), device=form.test.device)
+        self.outputs_field_dict[name] = dict(
+            form=form,
+            func=Function(V, name),
+            shape=V.n_dofs,
+            arguments=list(arguments),
+            record=record or self.record,
+        )
 
     def add_strong_bc(self, value, locate_BC_list=None, function_space=None,
                       bc: DirichletBC | None = None, component=None):

@@ -10,7 +10,9 @@ integrands (fea/assemble.py).
   :class:`Q` carrying ``val`` and ``grad``; the test function is ``w.v``
   and the form must be linear in it.  On interior facets each is a
   :class:`QR` restricted with ``w.u("+")`` / ``w.u("-")``.
-* ``g`` — geometry: ``g.x``, ``g.n`` (facets), ``g.h``, ``g.tag``.
+* ``g`` — geometry: ``g.x``, ``g.n`` (facets), ``g.h``, ``g.tag`` (the
+  cell's tag, or the facet's on facets) and, on facets, the owning cells'
+  tags: ``g.ctag`` (exterior), ``g.ctag0`` / ``g.ctag1`` (interior).
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ def detF(uhat):
 @dataclass
 class Integral:
     fn: Callable
-    domain: str = "cell"  # "cell" | "interior_facet"
+    domain: str = "cell"  # "cell" | "interior_facet" | "exterior_facet"
     tag: Optional[object] = None  # int, tuple of ints, or None (everywhere)
     qdeg: Optional[int] = None
 
@@ -133,6 +135,11 @@ class Integral:
 def dx(fn, tag=None, qdeg=None) -> Integral:
     """Cell integral (UFL ``dx``)."""
     return Integral(fn, "cell", tag, qdeg)
+
+
+def ds(fn, tag=None, qdeg=None) -> Integral:
+    """Exterior-facet integral (UFL ``ds``)."""
+    return Integral(fn, "exterior_facet", tag, qdeg)
 
 
 def dS(fn, tag=None, qdeg=None) -> Integral:
@@ -159,6 +166,21 @@ class FormDef:
             target[f.name] = f
         self.test: FunctionSpace | None = test
         self._assembler = None  # cache, built by the assemble module
+
+    def __add__(self, other: "FormDef") -> "FormDef":
+        """The sum of two forms (e.g. a residual and its Nitsche boundary
+        terms): their integrals over the union of their coefficients."""
+        if other is None or other == 0:
+            return self
+        if self.test is not None and other.test is not None \
+                and self.test is not other.test:
+            raise ValueError("cannot add forms with different test spaces")
+        coeffs = {**self.coeffs, **other.coeffs,
+                  **self.globals, **other.globals}
+        return FormDef(self.integrals + other.integrals, coeffs.values(),
+                       self.test or other.test)
+
+    __radd__ = __add__
 
     def values(self) -> dict[str, torch.Tensor]:
         """Current coefficient arrays (defaults for assembly)."""

@@ -1,36 +1,29 @@
 """Implicit (IFT) solves (port of femo_tpu/graph/implicit.py).
 
-Two entry points, each a `torch.autograd.Function` whose backward pass is
+Each entry point is a `torch.autograd.Function` whose backward pass is
 the implicit-function-theorem adjoint: one transpose solve at the
 converged state plus a VJP of the residual with respect to the inputs.
 
-* `ImplicitSolveOp` — the eager graph path's op (FEA states): a host
-  Newton loop (`solvers/newton.py`) with any `LinearSolver` backend.  The
-  forward pass keeps the last Newton factorization on the autograd
-  context (the JAX package keeps it in `_fac_stash`), and the backward
-  pass solves with its `solve_t`.  With the Krylov backends every matvec
-  of both passes is the element SpMV kernel (K4 forward, K4T adjoint) on
-  CUDA tensors.  Only mode="eager" is ported.
+* `ImplicitSolveOp` — the eager graph path's op (FEA states).  Mode
+  "eager": a host Newton loop (`solvers/newton.py`) with any
+  `LinearSolver` backend; the forward pass keeps the last Newton
+  factorization on the autograd context (the JAX package keeps it in
+  `_fac_stash`) and the backward pass solves with its `solve_t`.  With
+  the Krylov backends every matvec of both passes is the element SpMV
+  kernel (K4 forward, K4T adjoint) on CUDA tensors; with the block-Thomas
+  backends every solve is the sweeps K1/K2.  Mode "jit_dense":
+  `implicit_solve_dense` with `jit_newton_iters` Newton iterations (the
+  JAX package's jitted mode; nothing is traced here).
 
-* `implicit_solve_bt(...)` — the motor step's configuration of
-  `implicit_solve_bt_jit`, through the block-tridiagonal factorization:
-  * forward: `load_steps x newton_iters` Newton iterations; each assembles
-    the residual and the element Jacobian, fills the block-tridiagonal
-    template, block-Thomas factors it and solves with the factor followed
-    by `pcg_fixed` against the fresh operator.  The inputs are scaled per
-    load step (`scale_inputs`).
-  * backward (IFT): re-fill the operator at the converged u, factor its
-    transpose, psi = M_t(ubar) polished by a transpose `pcg_fixed`, mask
-    psi to the free dofs, and pbar = vjp(residual(u, .), inputs)(-psi) with
-    the unscaled inputs; u0 gets a zero gradient.
+* `implicit_solve_dense(...)` — fixed-count Newton with a dense LU of the
+  constrained Jacobian, its factors kept for the transpose adjoint solve
+  (the port of `implicit_solve_dense_jit`).
 
-  Only `refactor_every=1`, `factor_method="thomas"` and
-  `adjoint="refactor"` are ported.  The JAX package's guard against
-  `sweeps="pallas"` in f64 without a PCG polish (femo_tpu/graph/
-  implicit.py:382-389, and femo_tpu/models/fsi.py:695-701) has no
-  counterpart: it exists because Mosaic has no f64 and the Pallas sweeps
-  ran in f32, whereas the port's CUDA sweeps run in the working dtype, so an
-  f64 solve is f64 throughout.
+* `implicit_solve_bt(...)` — fixed-count Newton through the
+  block-tridiagonal template and the block-Thomas factor, with Shamanskii
+  factor reuse (`refactor_every`, `freeze_operator`) and Jacobi scaling
+  (the port of `implicit_solve_bt_jit`).  Only factor_method="thomas" and
+  adjoint="refactor" are ported.
 """
 
 from __future__ import annotations
@@ -44,7 +37,7 @@ from torch.func import vjp
 from ..config import config
 from ..fea.assemble import CompiledForm, ElementMatrix
 from ..fea.bc import apply_bc, constrain_residual
-from ..ops.block_tridiag import pcg_fixed
+from ..ops.block_tridiag import BlockThomasFactor, pcg_fixed
 from ..solvers.linear import LinearSolver
 from ..solvers.newton import newton_solve
 
@@ -63,7 +56,8 @@ class ImplicitSolveOp:
     custom_solve : optional callable (op, inputs: dict, u0) -> u replacing
         the default Newton loop (continuation hooks); it may call
         op.newton(...).
-    mode : "eager" (the only mode ported)
+    mode : "eager" | "jit_dense" (dense-LU Newton with a fixed count,
+        newton_opts["jit_newton_iters"], default 1)
     """
 
     def __init__(self, cform: CompiledForm, state_name: str,
@@ -72,9 +66,9 @@ class ImplicitSolveOp:
                  newton_opts: dict | None = None,
                  custom_solve: Callable | None = None,
                  mode: str = "eager"):
-        if mode != "eager":
-            raise NotImplementedError(
-                f"ImplicitSolveOp mode={mode!r}: only 'eager' is ported")
+        if mode not in ("eager", "jit_dense"):
+            raise ValueError(f"ImplicitSolveOp mode={mode!r}: 'eager' or "
+                             "'jit_dense'")
         self.cform = cform
         self.state_name = state_name
         self.arg_names = list(arg_names)
@@ -85,6 +79,13 @@ class ImplicitSolveOp:
         self.custom_solve = custom_solve
         self.n_dofs = cform.form.test.n_dofs
         self.mode = mode
+        if mode == "jit_dense":
+            self._solve = implicit_solve_dense(
+                self.residual, lambda u, p: self.jacobian(u, p).to_dense(),
+                free, bc_values,
+                newton_iters=self.newton_opts.get("jit_newton_iters", 1))
+        else:
+            self._solve = _ift_solve(self._forward, self._adjoint)
 
     # -- residual / jacobian helpers -------------------------------------------
     def _values(self, u, inputs: dict):
@@ -130,39 +131,126 @@ class ImplicitSolveOp:
                 f"||R||={info.resnorm:.3e} after {info.iters} iters")
         return u, fac
 
+    def _adjoint(self, u, inputs, fac, ubar):
+        """The IFT adjoint with the forward pass's last factorization."""
+        psi = torch.where(self.free, fac.solve_t(ubar), 0.0)
+        return _vjp_inputs(self.residual, u, inputs, psi)
+
     def __call__(self, inputs: dict, u0=None):
         if u0 is None:
             u0 = torch.zeros(self.n_dofs, dtype=config.dtype,
                              device=self.free.device)
+        return self._solve(inputs, u0.detach())
+
+
+def _ift_solve(forward, backward):
+    """solve(inputs: dict, u0) -> u as a `torch.autograd.Function`:
+    forward(inputs, u0) -> (u, saved) runs without autograd, and
+    backward(u, inputs, saved, ubar) -> dict of input cotangents is the
+    IFT adjoint; u0 gets a zero gradient."""
+
+    class _Solve(torch.autograd.Function):
+        """(keys, u0, *input tensors in the order of keys) -> u."""
+
+        @staticmethod
+        def forward(ctx, keys, u0, *vals):
+            u, ctx.extra = forward(dict(zip(keys, vals)), u0)
+            ctx.keys = keys
+            ctx.save_for_backward(u, *vals)
+            return u
+
+        @staticmethod
+        def backward(ctx, ubar):
+            u, *vals = ctx.saved_tensors
+            pbar = backward(u, dict(zip(ctx.keys, vals)), ctx.extra, ubar)
+            ctx.extra = None  # one backward per forward
+            return (None, torch.zeros_like(u)) + tuple(
+                pbar[k] for k in ctx.keys)
+
+    def solve(inputs: dict, u0):
         keys = tuple(inputs)
-        return _ImplicitSolve.apply(self, keys, u0.detach(),
-                                    *(inputs[k] for k in keys))
+        return _Solve.apply(keys, u0, *(inputs[k] for k in keys))
+
+    return solve
 
 
-class _ImplicitSolve(torch.autograd.Function):
-    """(op, keys, u0, *input tensors in the order of keys) -> u."""
+def _load_scaler(load_steps, newton_iters, scale_inputs):
+    """at_iteration(inputs, k): the inputs of Newton iteration k, scaled
+    by its load step's factor (k // newton_iters + 1) / load_steps with
+    `scale_inputs` (default: every input)."""
 
-    @staticmethod
-    def forward(ctx, op, keys, u0, *vals):
-        inputs = dict(zip(keys, vals))
-        u, fac = op._forward(inputs, u0)
-        ctx.op, ctx.keys, ctx.fac = op, keys, fac
-        ctx.save_for_backward(u, *vals)
-        return u
+    def at_iteration(inputs, k):
+        if load_steps == 1:
+            return inputs
+        s = (k // newton_iters + 1) / load_steps
+        if scale_inputs is not None:
+            return scale_inputs(inputs, s)
+        return {name: v * s for name, v in inputs.items()}
 
-    @staticmethod
-    def backward(ctx, ubar):
-        u, *vals = ctx.saved_tensors
-        op = ctx.op
-        inputs = dict(zip(ctx.keys, vals))
-        psi = ctx.fac.solve_t(ubar)
-        ctx.fac = None  # one backward per forward
-        psi = torch.where(op.free, psi, 0.0)
-        # pbar = -psi^T dR/dp through a VJP of the residual
-        _, vjp_p = vjp(lambda p: op.residual(u, p), inputs)
-        (pbar,) = vjp_p(-psi)
-        return (None, None, torch.zeros_like(u)) + tuple(
-            pbar[k] for k in ctx.keys)
+    return at_iteration
+
+
+def _vjp_inputs(residual_fn, u, inputs, psi):
+    """pbar = -psi^T dR/dp through a VJP of the residual."""
+    _, vjp_p = vjp(lambda p: residual_fn(u, p), inputs)
+    (pbar,) = vjp_p(-psi)
+    return pbar
+
+
+def implicit_solve_dense(residual_fn: Callable, jac_dense_fn: Callable,
+                         free, bc_values, newton_iters: int = 1,
+                         load_steps: int = 1,
+                         scale_inputs: Callable | None = None,
+                         factorization: str = "lu"):
+    """Differentiable Newton solve of residual_fn(u, inputs) = 0 with a
+    dense factorization of the BC-constrained Jacobian
+    (jac_dense_fn(u, inputs) -> (n, n)), the port of
+    `implicit_solve_dense_jit`.
+
+    `load_steps x newton_iters` Newton iterations; at iteration k the
+    inputs are scaled by (k // newton_iters + 1) / load_steps
+    (`scale_inputs`, default: every input).  The last iteration runs at
+    the full inputs and keeps its factorization for the adjoint, a
+    transpose solve with the same factors.  factorization: "lu"
+    (`torch.linalg.lu_factor` / `lu_solve`) or "inv" (the explicit
+    inverse).  Returns solve(inputs: dict of tensors, u0) -> u.
+    """
+    if factorization not in ("lu", "inv"):
+        raise ValueError(f"factorization={factorization!r}: 'lu' or 'inv'")
+    at_iteration = _load_scaler(load_steps, newton_iters, scale_inputs)
+
+    def factor(A):
+        if factorization == "inv":
+            return torch.linalg.inv(A)
+        return torch.linalg.lu_factor(A)
+
+    def fsolve(fac, b, transpose=False):
+        if factorization == "inv":
+            return (fac.T if transpose else fac) @ b
+        return torch.linalg.lu_solve(*fac, b[:, None],
+                                     adjoint=transpose)[:, 0]
+
+    def constrained(A):
+        fr = free.to(A.dtype)
+        return A * fr[:, None] * fr[None, :] + torch.diag(1.0 - fr)
+
+    def newton_once(u, p):
+        Rc = constrain_residual(residual_fn(u, p), u, free, bc_values)
+        fac = factor(constrained(jac_dense_fn(u, p)))
+        return apply_bc(u + fsolve(fac, -Rc), free, bc_values), fac
+
+    def forward(inputs, u0):
+        u = apply_bc(u0, free, bc_values)
+        for k in range(load_steps * newton_iters - 1):
+            u, _ = newton_once(u, at_iteration(inputs, k))
+        # the last iterate at full load keeps its factors for the adjoint
+        return newton_once(u, inputs)
+
+    def backward(u, inputs, fac, ubar):
+        psi = torch.where(free, fsolve(fac, ubar, transpose=True), 0.0)
+        return _vjp_inputs(residual_fn, u, inputs, psi)
+
+    return _ift_solve(forward, backward)
 
 
 def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
@@ -172,28 +260,80 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
                       pcg_iters: int = 0,
                       factor_method: str = "thomas",
                       adjoint: str = "refactor",
-                      refactor_every: int = 1):
-    """Differentiable Newton solve of residual_fn(u, inputs) = 0 (strong BCs
-    by row masking).  jac_blocks_fn(u, inputs) -> [(A_e, rows, cols), ...].
-    Returns solve(inputs: dict of tensors, u0) -> u."""
+                      jacobi_scale: bool = False,
+                      refactor_every: int = 1,
+                      freeze_operator: bool = False):
+    """Differentiable Newton solve of residual_fn(u, inputs) = 0 (strong
+    BCs by row masking) through the block-tridiagonal template, the port
+    of `implicit_solve_bt_jit`.  jac_blocks_fn(u, inputs) -> [(A_e, rows,
+    cols), ...].  Returns solve(inputs: dict of tensors, u0) -> u.
+
+    Each of the `load_steps x newton_iters` Newton iterations assembles
+    the residual, solves with the block-Thomas factor (the sweeps K1/K2 on
+    CUDA tensors) and, with `pcg_iters > 0`, polishes the step with
+    `pcg_fixed` against the fresh operator.
+
+    jacobi_scale: factor the equilibrated S A S and precondition with
+    M(b) = S F'^{-1} S b.
+
+    refactor_every: Shamanskii factor reuse.  The factor is computed only
+    on iterations with k % refactor_every == 0; in between, the factor's
+    (L, Sinv, C) of the last refactor iteration (and its scale) precondition
+    the PCG polish, which runs against the freshly assembled operator, so
+    the fixed point is unchanged.  The stale L must stay with its Sinv:
+    the forward sweep reads both.  Requires Thomas and pcg_iters > 0.
+
+    freeze_operator: classical Shamanskii.  Fill and factor only on
+    refactor iterations; the carried (D, L, U) and factor precondition
+    AND serve as the PCG operator; the residual is always fresh.
+    Requires refactor_every > 1.  Departure from the JAX package: with
+    jacobi_scale it raises ValueError, where the JAX package freezes an
+    operator mixing raw D and U with the scaled L.
+
+    The adjoint re-fills the operator at the converged u and factors its
+    transpose (adjoint="refactor").  Only factor_method="thomas" and
+    adjoint="refactor" are ported.  The JAX package's guard against
+    `sweeps="pallas"` in f64 without a PCG polish has no counterpart: the
+    Pallas sweeps ran in f32, the port's CUDA sweeps run in the working
+    dtype.
+    """
     if factor_method != "thomas":
         raise ValueError(f"factor_method={factor_method!r}: only 'thomas' "
                          "is ported")
     if adjoint != "refactor":
         raise ValueError(f"adjoint={adjoint!r}: only 'refactor' is ported")
-    if refactor_every != 1:
-        raise ValueError(f"refactor_every={refactor_every}: only 1 is "
-                         "ported")
+    refactor_every = int(refactor_every)
+    if refactor_every < 1:
+        raise ValueError(f"refactor_every must be >= 1, got {refactor_every}")
+    if freeze_operator and refactor_every == 1:
+        raise ValueError("freeze_operator requires refactor_every > 1 "
+                         "(with refactor_every=1 nothing is frozen)")
+    if refactor_every > 1 and pcg_iters == 0:
+        raise ValueError(
+            "refactor_every > 1 requires pcg_iters > 0: intermediate "
+            "Newton steps solve with a stale factor and need the "
+            "fresh-operator PCG polish to bound their error")
+    if freeze_operator and jacobi_scale:
+        raise ValueError(
+            "freeze_operator with jacobi_scale is refused: the JAX "
+            "package's frozen operator would mix raw D and U with the "
+            "scaled L")
+    at_iteration = _load_scaler(load_steps, newton_iters, scale_inputs)
 
-    def scale(inputs, s):
-        if scale_inputs is not None:
-            return scale_inputs(inputs, s)
-        return {k: v * s for k, v in inputs.items()}
+    def factored(mat, transpose=False):
+        """(the factor of mat, or of its equilibrated copy, and the scale
+        s, None without jacobi_scale)."""
+        smat, s = mat.jacobi_scaled() if jacobi_scale else (mat, None)
+        return (smat.factor_t() if transpose else smat.factor()), s
 
-    def newton_once(u, p):
-        Rc = constrain_residual(residual_fn(u, p), u, free, bc_values)
-        mat = template.matrix(jac_blocks_fn(u, p))
-        M = mat.factor().solve
+    def scaled(mat, fac, s):
+        """The preconditioner solve M(b) = S F^{-1} S b (F^{-1} b unscaled)."""
+        if s is None:
+            return fac.solve
+        return lambda b: mat.scale_vector(fac.solve(mat.scale_vector(b, s)),
+                                          s)
+
+    def step(u, Rc, mat, M):
         du = M(-Rc)
         if pcg_iters > 0:
             du = pcg_fixed(mat, None, -Rc, pcg_iters, x0=du, M=M)
@@ -201,46 +341,36 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
 
     def forward(inputs, u0):
         u = apply_bc(u0, free, bc_values)
+        carry = None  # (L, Sinv, C, s) or, frozen, (matrix, factor)
         for k in range(load_steps * newton_iters):
-            s = (k // newton_iters + 1) / load_steps
-            p = inputs if load_steps == 1 else scale(inputs, s)
-            u = newton_once(u, p)
-        return u
+            p = at_iteration(inputs, k)
+            Rc = constrain_residual(residual_fn(u, p), u, free, bc_values)
+            refactor = k % refactor_every == 0
+            if freeze_operator:
+                if refactor:
+                    mat = template.matrix(jac_blocks_fn(u, p))
+                    carry = (mat, mat.factor())
+                mat, fac = carry
+                u = step(u, Rc, mat, fac.solve)
+                continue
+            mat = template.matrix(jac_blocks_fn(u, p))
+            if refactor:
+                fac, s = factored(mat)
+                carry = (fac.mat.L, fac.Sinv, fac.C, s)
+            L, Sinv, C, s = carry
+            # the stale factor with the L it was computed from
+            fac = BlockThomasFactor(mat._like(mat.D, L, mat.U), Sinv, C)
+            u = step(u, Rc, mat, scaled(mat, fac, s))
+        return u, None
 
-    def backward(u, inputs, ubar):
+    def backward(u, inputs, _, ubar):
         mat = template.matrix(jac_blocks_fn(u, inputs))
-        M_t = mat.factor_t().solve
+        M_t = scaled(mat, *factored(mat, transpose=True))
         psi = M_t(ubar)
         if pcg_iters > 0:
             psi = pcg_fixed(mat, None, ubar, pcg_iters, x0=psi,
                             transpose=True, M=M_t)
         psi = torch.where(free, psi, 0.0)
-        _, vjp_p = vjp(lambda p: residual_fn(u, p), inputs)
-        (pbar,) = vjp_p(-psi)
-        return pbar
+        return _vjp_inputs(residual_fn, u, inputs, psi)
 
-    class _Solve(torch.autograd.Function):
-        """Positional form of the solve: (u0, *input tensors) -> u, the
-        inputs in the order of `keys`."""
-
-        @staticmethod
-        def forward(ctx, keys, u0, *vals):
-            inputs = dict(zip(keys, vals))
-            u = forward(inputs, u0)
-            ctx.keys = keys
-            ctx.save_for_backward(u, *vals)
-            return u
-
-        @staticmethod
-        def backward(ctx, ubar):
-            u, *vals = ctx.saved_tensors
-            inputs = dict(zip(ctx.keys, vals))
-            pbar = backward(u, inputs, ubar)
-            return (None, torch.zeros_like(u)) + tuple(
-                pbar[k] for k in ctx.keys)
-
-    def solve(inputs: dict, u0):
-        keys = tuple(inputs)
-        return _Solve.apply(keys, u0, *(inputs[k] for k in keys))
-
-    return solve
+    return _ift_solve(forward, backward)

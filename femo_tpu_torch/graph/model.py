@@ -18,6 +18,7 @@ import torch
 from ..config import config, get_device
 from ..fea.assemble import compile_form
 from ..fea.fea import FEA
+from ..fea.project import project_form
 
 
 @dataclass
@@ -102,8 +103,9 @@ class Model:
 
 class FEAModel(Model):
     """Model auto-populated from a list of FEA problems: one operation per
-    state and one per scalar output, wired by argument names.  Its device
-    is that of the first problem's first state space unless given."""
+    state, per scalar output and per field output (projected to CG1),
+    wired by argument names.  Its device is that of the first problem's
+    first state space unless given."""
 
     def __init__(self, fea: list[FEA] | FEA, recorder=None, device=None):
         fea_list = [fea] if isinstance(fea, FEA) else list(fea)
@@ -160,5 +162,22 @@ class FEAModel(Model):
             self.add_op(f"{oname}_output_model", make_out_fn(),
                         o["arguments"], [oname])
 
-        if fea.outputs_field_dict:
-            raise NotImplementedError("field outputs are not ported")
+        for oname, o in fea.outputs_field_dict.items():
+            def make_field_fn(fea=fea, oname=oname, o=o):
+                def field_fn(*args):
+                    named = dict(zip(o["arguments"], args))
+                    vals = o["form"].values()
+                    vals.update(
+                        {k: v for k, v in named.items() if k in vals})
+                    arr = project_form(o["form"], o["func"].space, vals)
+                    if not self.pure:
+                        o["func"].array = arr.detach()
+                        if self.recorder is not None and o["record"]:
+                            self.recorder.write(oname, o["func"],
+                                                fea.opt_iter)
+                    return arr
+
+                return field_fn
+
+            self.add_op(f"{oname}_field_output_model", make_field_fn(),
+                        o["arguments"], [oname])

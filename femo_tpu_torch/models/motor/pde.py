@@ -14,8 +14,8 @@ import torch
 from torch.func import jvp
 
 from ...fea.assemble import _det_small, _inv_small
-from ...fea.forms import FormDef, dS, defF, dot, dx, grad
-from .mesh import N_MAGNETS, MotorTags
+from ...fea.forms import FormDef, dS, defF, detF, dot, ds, dx, grad
+from .mesh import N_MAGNETS, RADII, MotorTags
 from .permeability import PiecewiseBHCurve
 
 T = MotorTags
@@ -95,6 +95,40 @@ def em_residual_form(A_z, uhat, Htable, Jtable, bh: PiecewiseBHCurve,
                    test=test_space or A_z.space)
 
 
+def em_nitsche_boundary_form(A_z, uhat, bh: PiecewiseBHCurve,
+                             g_bc: float = 0.0, sym: bool = True,
+                             beta: float = 1e6, tags=(1000, 1001),
+                             test_space=None):
+    """Nitsche weak enforcement of A_z = g on the exterior boundaries in
+    the deformed configuration: the boundary normal and area element
+    transform by Nanson's formula ds_x n_x = J F^{-T} n ds_X."""
+    uname, hname = A_z.name, uhat.name
+    sgn = 1.0 if sym else -1.0
+
+    def bdry(w, g):
+        Fh = defF(getattr(w, hname))
+        Jh = _det_small(Fh)
+        Finv = _inv_small(Fh, Jh)
+        # Nanson: the deformed-area-weighted normal (not unit)
+        nans = Jh * (Finv.transpose(-1, -2) @ g.n)
+        gu = dot(grad(getattr(w, uname)), Finv)
+        gv = dot(grad(w.v), Finv)
+        Bn = torch.sqrt(gu[0] ** 2 + gu[1] ** 2 + EPS)
+        # the material coefficient dispatches on the boundary CELL's
+        # subdomain tag (g.ctag), not on the facet marker: on the stator
+        # steel's outer rim the consistency term takes steel's permeability
+        coeff = (1.0 / VACUUM_PERM) / relative_permeability(g.ctag, Bn, bh)
+        u_g = getattr(w, uname) - g_bc
+        r = coeff * (-dot(gu, nans) * w.v - sgn * dot(gv, nans) * u_g)
+        if sym:
+            norm_nans = torch.sqrt(torch.sum(nans**2) + EPS)
+            r = r + beta / g.h * coeff * norm_nans * w.v * u_g
+        return r
+
+    return FormDef([ds(bdry, tag=tuple(tags), qdeg=2)],
+                   coeffs=[A_z, uhat], test=test_space or A_z.space)
+
+
 def _pk1(G):
     """First Piola-Kirchhoff stress of the stiffened fictitious material:
     K = mu = det(F)^-3.  Returns (P, det F)."""
@@ -166,6 +200,18 @@ def b_power_form(A_z, uhat, n_exp: float, subdomains=(1, 2)):
                    coeffs=[A_z, uhat])
 
 
+def area_form(uhat, subdomains):
+    """Deformed-configuration area of the tagged subdomains."""
+
+    hname = uhat.name
+
+    def integrand(w, g):
+        return detF(getattr(w, hname))
+
+    return FormDef([dx(integrand, tag=tuple(subdomains), qdeg=2)],
+                   coeffs=[uhat])
+
+
 def power_losses(B_eddy, B_hyst, frequency=1000.0, motor_length=0.07,
                  hysteresis_coeff=55.0):
     """Loss post-model: eddy = 2 pi^2 f^2 L * B_infl_eddy * 0.07;
@@ -173,3 +219,51 @@ def power_losses(B_eddy, B_hyst, frequency=1000.0, motor_length=0.07,
     eddy = 2 * np.pi**2 * frequency**2 * motor_length * B_eddy * 0.07
     hyst = 2 * np.pi * frequency * hysteresis_coeff * motor_length * B_hyst
     return eddy, hyst
+
+
+def b_field_output_form(A_z, uhat, V_cg1):
+    """1-form projecting |B| = |grad_x A_z| onto CG1 (a field output)."""
+    uname, hname = A_z.name, uhat.name
+
+    def integrand(w, g):
+        Fh = defF(getattr(w, hname))
+        Jh = _det_small(Fh)
+        Finv = _inv_small(Fh, Jh)
+        gA = dot(grad(getattr(w, uname)), Finv)
+        Bn = torch.sqrt(gA[0] ** 2 + gA[1] ** 2 + EPS)
+        return Bn * w.v
+
+    return FormDef([dx(integrand, qdeg=2)], coeffs=[A_z, uhat],
+                   test=V_cg1)
+
+
+def torque_form(A_z, uhat, gap_tags=(T.AIR,), r_in: float | None = None,
+                r_out: float | None = None, length: float = 0.07):
+    """Electromagnetic torque by Arkkio's method: the Maxwell stress
+    r B_r B_theta / (mu0 (r_out - r_in)) integrated over the air-gap
+    annulus, with B from grad_x A_z in the deformed configuration."""
+    r_in = RADII["r3"] if r_in is None else r_in
+    r_out = RADII["r4"] if r_out is None else r_out
+    uname, hname = A_z.name, uhat.name
+
+    def integrand(w, g):
+        uh = getattr(w, hname)
+        Fh = defF(uh)
+        Jh = _det_small(Fh)
+        Finv = _inv_small(Fh, Jh)
+        gA = dot(grad(getattr(w, uname)), Finv)
+        Bx, By = gA[1], -gA[0]  # B = (dA/dy, -dA/dx)
+        # radius, radial decomposition and the annulus gate in the
+        # deformed configuration, where B and the area element live
+        xd = g.x + uh.val
+        r = torch.sqrt(xd[0] ** 2 + xd[1] ** 2 + EPS)
+        cx, cy = xd[0] / r, xd[1] / r
+        Br = Bx * cx + By * cy
+        Bt = -Bx * cy + By * cx
+        # the AIR tag also covers other regions: gate by radius
+        w_gap = ((r > r_in) & (r < r_out)).to(r.dtype)
+        return (length / (VACUUM_PERM * (r_out - r_in))) \
+            * w_gap * r * Br * Bt * Jh
+
+    return FormDef([dx(integrand, tag=tuple(gap_tags), qdeg=2)],
+                   coeffs=[A_z, uhat])

@@ -4,9 +4,8 @@ femo_tpu/models/poisson.py::build_fea).
 -lap(u) = f on the unit square with u = 0 on the boundary (strong BC), a
 CG1 state u and a DG0 control f; the objective is L2 tracking of the
 manufactured state plus Tikhonov regularization of f.  The weak-BC
-(Nitsche) variant needs exterior-facet terms, which the port does not
-have, and raises; the jitted opt step (`build_jit_opt_step`) is not
-ported.
+(Nitsche) variant and the jitted opt step (`build_jit_opt_step`) are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -44,8 +43,7 @@ def build_fea(nel: int = 16, weak_bc: bool = False, sym: bool = True,
     dict(u, f, u_ex, f_ex, V, W, mesh))."""
     if weak_bc:
         raise NotImplementedError(
-            "weak_bc=True needs exterior-facet (Nitsche) terms, which are "
-            "not ported")
+            "weak_bc=True (the Nitsche boundary terms) is not ported")
     device = get_device(device)
     mesh = create_unit_square_mesh(nel)
     V = FunctionSpace(mesh, ("CG", 1), device=device)

@@ -1,5 +1,5 @@
 """Block-tridiagonal operators and the block-Thomas direct solver (port of
-femo_tpu/ops/block_tridiag.py, the motor step's subset).
+femo_tpu/ops/block_tridiag.py: the Thomas path and its solver adapter).
 
 After RCM reordering (femo_tpu_torch.native, the JAX package's C++), a FEM
 matrix has bandwidth b; with block size B >= b (rounded up to a multiple of
@@ -14,6 +14,15 @@ matrix has bandwidth b; with block size B >= b (rounded up to a multiple of
   non-finite values downstream, without a host sync per block.
 * solve: the two triangular sweeps, ops/bt_sweeps.py (CUDA kernels on the
   card, plain loops on the CPU).
+* jacobi_scaled / scale_vector: the symmetric equilibration S A S; the
+  scaled solve x = S F'^{-1} S b is built by its callers (graph/implicit.py)
+  around the factor F' of the scaled matrix.
+* BlockTridiagFactorization: the `Factorization` adapter (solve, solve_t)
+  of the `block_thomas` and `*_bt` LinearSolver backends.
+
+Not ported (slice D): reduced-precision factor storage and sweeps, the SPD
+(Cholesky) factor, cyclic reduction, the chunked and mixed-precision
+factors and `pcg_tol`.
 """
 
 from __future__ import annotations
@@ -52,6 +61,24 @@ class BlockTridiagonalMatrix:
         inv[self.perm] = np.arange(len(self.perm))
         self.iperm = torch.as_tensor(inv, device=D.device)
         self.perm_t = torch.as_tensor(self.perm, device=D.device)
+
+    # -- construction ---------------------------------------------------------
+    @classmethod
+    def from_element_matrix(cls, emat, free=None):
+        """The BC-constrained operator of an ElementMatrix (identity on
+        fixed dofs), laid out and filled by a BlockTridiagTemplate on the
+        device of the element blocks."""
+        tpl = BlockTridiagTemplate(emat, free=free,
+                                   device=emat.blocks[0].A.device)
+        return tpl.matrix([(b.A, b.rows, b.cols) for b in emat.blocks])
+
+    def _like(self, D, L, U):
+        """A matrix of other blocks in this one's layout, sharing its
+        permutation tensors."""
+        m = object.__new__(BlockTridiagonalMatrix)
+        m.__dict__.update(self.__dict__)
+        m.D, m.L, m.U = D, L, U
+        return m
 
     # -- vector permutation helpers ----------------------------------------------
     def to_blocks(self, x):
@@ -102,32 +129,79 @@ class BlockTridiagonalMatrix:
     def _transposed(self):
         # contiguous copies: the sweep kernels read row-major blocks, so
         # they must not be handed transposed views
-        return BlockTridiagonalMatrix(
+        return self._like(
             self.D.transpose(1, 2).contiguous(),
             # A^T lower block i = U_{i-1}^T
             torch.roll(self.U.transpose(1, 2), 1, dims=0).contiguous(),
-            torch.roll(self.L.transpose(1, 2), -1, dims=0).contiguous(),
-            self.perm, self.n)
+            torch.roll(self.L.transpose(1, 2), -1, dims=0).contiguous())
+
+    # -- symmetric Jacobi scaling ------------------------------------------
+    def jacobi_scaled(self):
+        """The symmetrically equilibrated copy A' = S A S, S = diag(1 /
+        sqrt(|diag A|)), and the block-layout scale s (nb, B).  Identity
+        padding and BC rows keep s = 1."""
+        d = torch.diagonal(self.D, dim1=1, dim2=2)
+        s = 1.0 / torch.sqrt(torch.clamp(torch.abs(d),
+                                         min=torch.finfo(d.dtype).tiny))
+        z = torch.zeros_like(s[:1])
+        sm = torch.cat([z, s[:-1]])  # s of block row i - 1
+        sp = torch.cat([s[1:], z])  # s of block row i + 1
+        D2 = self.D * s[:, :, None] * s[:, None, :]
+        L2 = self.L * s[:, :, None] * sm[:, None, :]
+        U2 = self.U * s[:, :, None] * sp[:, None, :]
+        return self._like(D2, L2, U2), s
+
+    def scale_vector(self, x, s):
+        """Apply the block-layout diagonal scale s to a dof vector."""
+        return self.from_blocks(self.to_blocks(x) * s)
 
 
 @dataclass
 class BlockThomasFactor:
+    """Solve phase of block Thomas.  The forward sweep reads `mat.L` beside
+    `Sinv`: the factor's own lower blocks, which a caller reusing a stale
+    factor must keep (graph/implicit.py)."""
+
     mat: BlockTridiagonalMatrix
     Sinv: torch.Tensor  # (nb, B, B)
     C: torch.Tensor  # (nb, B, B)
-    # the JAX factor's reduced-precision sweeps and Jacobi-scaled solve;
-    # not on the motor step, not ported
-    sweep_dtype: object = None
-    scale: object = None
 
     def solve(self, b):
         """x = A^{-1} b through the two triangular sweeps."""
-        if self.scale is not None or self.sweep_dtype is not None:
-            raise NotImplementedError(
-                "scaled or reduced-precision sweeps are not ported")
         m = self.mat
         return m.from_blocks(
             bt_sweep_solve(self.Sinv, m.L, self.C, m.to_blocks(b)))
+
+    def solve_refined(self, b, refine: int = 0):
+        """Solve with `refine` steps of iterative refinement against the
+        factor's matrix (refine=0 is the plain solve)."""
+        x = self.solve(b)
+        for _ in range(refine):
+            x = x + self.solve(b - self.mat.matvec(x))
+        return x
+
+
+class BlockTridiagFactorization:
+    """Factorization-interface adapter (solvers/linear.py): the
+    BC-constrained operator of an ElementMatrix in block-tridiagonal form,
+    block-Thomas factored; `solve_t` factors the transpose at its first
+    call."""
+
+    def __init__(self, emat, free):
+        self.mat = BlockTridiagonalMatrix.from_element_matrix(emat, free)
+        self._f = self.mat.factor()
+        self._ft = None
+
+    def solve(self, b):
+        return self._f.solve(b)
+
+    def transpose_factor(self) -> BlockThomasFactor:
+        if self._ft is None:
+            self._ft = self.mat.factor_t()
+        return self._ft
+
+    def solve_t(self, b):
+        return self.transpose_factor().solve(b)
 
 
 class BlockTridiagTemplate:
@@ -142,11 +216,15 @@ class BlockTridiagTemplate:
 
         device = get_device(device)
 
+        def host(a):
+            return a.cpu().numpy() if isinstance(a, torch.Tensor) \
+                else np.asarray(a)
+
         n = emat.shape[0]
         self.n = n
-        self.free = None if free is None else np.asarray(free)
-        indptr, indices = native.csr_pattern_from_blocks(
-            [(b.rows, b.cols) for b in emat.blocks], n)
+        self.free = None if free is None else host(free)
+        pattern = [(host(b.rows), host(b.cols)) for b in emat.blocks]
+        indptr, indices = native.csr_pattern_from_blocks(pattern, n)
         perm = native.rcm_order(indptr, indices)
         iperm = np.zeros(n, np.int64)
         iperm[perm] = np.arange(n)
@@ -165,9 +243,8 @@ class BlockTridiagTemplate:
         self.dest_size = 3 * nb * B * B + 1
         dump = self.dest_size - 1
         dest = np.concatenate([
-            native.bt_dest_map(np.asarray(b.rows), np.asarray(b.cols),
-                               iperm, self.free, B, nb, dump)
-            for b in emat.blocks])
+            native.bt_dest_map(r, c, iperm, self.free, B, nb, dump)
+            for r, c in pattern])
         self.dest = torch.as_tensor(dest, device=device)
         keep = np.nonzero(dest != dump)[0]
         self._keep = torch.as_tensor(keep, device=device)

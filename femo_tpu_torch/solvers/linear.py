@@ -10,10 +10,15 @@ Backends behind one interface (`solve`, and `solve_t` for the adjoint):
   rmatvec, i.e. the element SpMV kernels K4/K4T on CUDA tensors.
 * ``scipy`` — host sparse LU (not differentiable; used only inside the
   implicit solve, whose backward never differentiates through it).
+* ``block_thomas`` — RCM + block-tridiagonal Thomas direct solve
+  (ops/block_tridiag.py); its solves are the sweep kernels K1/K2 on CUDA
+  tensors.
+* ``cg_bt`` / ``bicgstab_bt`` / ``gmres_bt`` — Krylov preconditioned by
+  the block-Thomas factor; the adjoint's `solve_t` preconditions with the
+  factor of the transpose.
 
 The constrained operator is ``A_c = P A P + (I - P)`` with P the
-projector onto free dofs.  The block-Thomas backends (``block_thomas``
-and ``*_bt``) are not ported to this interface and raise.
+projector onto free dofs.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from ..config import config
 from ..fea.assemble import ElementMatrix
+from ..ops.block_tridiag import BlockTridiagFactorization
 from .krylov import KRYLOV
 
 
@@ -97,6 +103,24 @@ class KrylovFactorization(Factorization):
         return self._run(self.mvt, b)
 
 
+class BlockThomasKrylovFactorization(KrylovFactorization):
+    """Krylov preconditioned by the block-Thomas factor of the constrained
+    operator; `solve_t` preconditions with the factor of its transpose,
+    built at the first adjoint solve."""
+
+    def __init__(self, emat, free, method, rtol, atol, maxiter):
+        super().__init__(emat, free, method, None, rtol, atol, maxiter)
+        self.bt = BlockTridiagFactorization(emat, free)
+
+    def solve(self, b):
+        self.M = self.bt._f.solve
+        return self._run(self.mv, b)
+
+    def solve_t(self, b):
+        self.M = self.bt.transpose_factor().solve
+        return self._run(self.mvt, b)
+
+
 class ScipyLUFactorization(Factorization):
     """Host sparse direct LU."""
 
@@ -125,7 +149,8 @@ class ScipyLUFactorization(Factorization):
 class LinearSolver:
     """Configurable linear solver (KSP-options parity).
 
-    method: "auto" | "dense" | "cg" | "bicgstab" | "gmres" | "scipy"
+    method: "auto" | "dense" | "cg" | "bicgstab" | "gmres" | "scipy" |
+    "block_thomas" | "cg_bt" | "bicgstab_bt" | "gmres_bt"
     "auto" picks dense direct up to ``config.dense_direct_max_dofs`` and
     bicgstab (or cg if symmetric=True) above.
     """
@@ -154,11 +179,11 @@ class LinearSolver:
             return DenseFactorization(emat, free)
         if method == "scipy":
             return ScipyLUFactorization(emat, free)
-        if method == "block_thomas" or method.endswith("_bt"):
-            raise NotImplementedError(
-                f"LinearSolver method {method!r}: the block-Thomas backends "
-                "are not ported to LinearSolver (ops/block_tridiag.py has "
-                "the factorization)")
+        if method == "block_thomas":
+            return BlockTridiagFactorization(emat, free)
+        if method.endswith("_bt") and method[:-3] in KRYLOV:
+            return BlockThomasKrylovFactorization(
+                emat, free, method[:-3], self.rtol, self.atol, self.maxiter)
         if method not in KRYLOV:
             raise ValueError(f"unknown LinearSolver method {method!r}")
         return KrylovFactorization(emat, free, method, self.pc, self.rtol,

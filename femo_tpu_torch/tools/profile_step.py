@@ -2,10 +2,13 @@
 on one CUDA card.
 
     python -m femo_tpu_torch.tools.profile_step [--refine 1 4] [--w1 260]
-        [--steps 5] [--out FILE]
+        [--refactor-every N] [--freeze-operator] [--steps 5] [--out FILE]
 
 For each refine level the motor step is built in f64 in the
-configuration of the f64 oracle (experiments/motor_latency_oracle.json);
+configuration of the f64 oracle (experiments/motor_latency_oracle.json),
+with Shamanskii factor reuse when given: `--refactor-every 3` is
+bench.py's refine-4 configuration, with `--freeze-operator` its refine-1
+one;
 for each `--w1` nel the W1 Poisson model is built in f64 (f = 0.5,
 objective l2_functional, `Simulator.run()` once) and its step is one
 `objective_gradient`, the call SLSQP makes each iteration.  Each step is
@@ -233,10 +236,11 @@ def trace_step(step, steps, layers):
     }, out
 
 
-def profile_refine(refine, steps):
+def profile_refine(refine, steps, **step_kw):
+    """The motor step at `refine` in ORACLE_CFG updated by step_kw."""
+    cfg = dict(ORACLE_CFG, **step_kw)
     t_build, (step, (dv0, iq0), info) = _sync_time(
-        lambda: build_motor_jit_step(refine=refine, device="cuda",
-                                     **ORACLE_CFG))
+        lambda: build_motor_jit_step(refine=refine, device="cuda", **cfg))
     r, (loss, _) = trace_step(lambda: step(dv0, iq0), steps, LAYERS)
     sweep_us = {"sweeps.K1": sum(k["device_s"] for k in r["kernels"]
                                  if "bt_fwd_kernel" in k["name"]) * 1e6,
@@ -245,7 +249,9 @@ def profile_refine(refine, steps):
     r["sweep_device_s"] = {k: v * 1e-6 for k, v in sweep_us.items()}
     r["sweep_rate_gbs"] = {k: r["sweep_bytes"][k] / (sweep_us[k] * 1e-6)
                            / 1e9 for k in sweep_us if sweep_us[k] > 0}
-    r.update(name=f"motor refine {refine}", refine=refine,
+    reuse = "".join(f", {k}={v}" for k, v in step_kw.items())
+    r.update(name=f"motor refine {refine}{reuse}", refine=refine,
+             step_kwargs=step_kw,
              cells=info["mesh"].n_cells, bt=info["bt"], loss=float(loss),
              build_s=t_build)
     return r
@@ -303,6 +309,10 @@ def main(argv=None):
                     help="motor refine levels (none: no motor step)")
     ap.add_argument("--w1", type=int, nargs="*", default=[],
                     help="W1 mesh sizes nel")
+    ap.add_argument("--refactor-every", type=int, default=1,
+                    help="motor step: factor every N Newton iterations")
+    ap.add_argument("--freeze-operator", action="store_true",
+                    help="motor step: freeze the operator between factors")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out/profile_step.json")
     args = ap.parse_args(argv)
@@ -317,7 +327,13 @@ def main(argv=None):
     copy_gbs = copy_rate_gbs()
     print(f"device-to-device copy rate: {copy_gbs:.1f} GB/s (read + write)")
     results = []
-    runs = ([lambda v=v: profile_refine(v, args.steps) for v in args.refine]
+    step_kw = {}
+    if args.refactor_every != 1:
+        step_kw["refactor_every"] = args.refactor_every
+    if args.freeze_operator:
+        step_kw["freeze_operator"] = True
+    runs = ([lambda v=v: profile_refine(v, args.steps, **step_kw)
+             for v in args.refine]
             + [lambda v=v: profile_w1(v, args.steps) for v in args.w1])
     for run in runs:
         r = run()

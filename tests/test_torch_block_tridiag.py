@@ -1,6 +1,9 @@
 """The port's block-tridiagonal template, factor and solves
 (femo_tpu_torch/ops/block_tridiag.py) against the JAX package's, on the
-refine-0.5 motor's mesh-motion and EM Jacobians, f64, CPU.
+refine-0.5 motor's mesh-motion and EM Jacobians, f64, CPU; its Jacobi
+scaling there (1e-14); and, on the Poisson system of
+tests/test_block_tridiag.py, the host construction from an element
+matrix (1e-14) and the `block_thomas` / `*_bt` LinearSolver backends.
 
 The host analyze step shares the JAX package's C++ (RCM, destination map),
 so the layout is EQUAL.  Tolerances: fill 1e-13 (the same sums in another
@@ -14,7 +17,10 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from femo_tpu.fea import Function as JFunction, FunctionSpace as JSpace
+from femo_tpu.fea import (
+    FormDef as JFormDef, Function as JFunction, FunctionSpace as JSpace,
+    assemble_matrix as jassemble_matrix, create_unit_square_mesh as jsquare,
+    dot as jdot, dx as jdx, grad as jgrad)
 from femo_tpu.fea.assemble import compile_form as jcompile
 from femo_tpu.fea.bc import DirichletBC as JDirichletBC, bc_arrays as jbc
 from femo_tpu.fea.forms import GlobalCoefficient as JGlobal
@@ -22,14 +28,19 @@ from femo_tpu.models.motor import pde as jpde
 from femo_tpu.models.motor.mesh import RADII, create_motor_mesh
 from femo_tpu.models.motor.permeability import PiecewiseBHCurve as JBH
 from femo_tpu.ops.block_tridiag import (
-    BlockTridiagTemplate as JTemplate, pcg_fixed as jpcg_fixed)
+    BlockTridiagonalMatrix as JMatrix, BlockTridiagTemplate as JTemplate,
+    pcg_fixed as jpcg_fixed)
+from femo_tpu.solvers.linear import LinearSolver as JLinearSolver
 
 from femo_tpu_torch.convert import mesh_from_jax
+from femo_tpu_torch.fea.assemble import assemble_matrix
 from femo_tpu_torch.fea.bc import DirichletBC, bc_arrays
-from femo_tpu_torch.fea.space import FunctionSpace
+from femo_tpu_torch.fea.forms import FormDef, dot, dx, grad
+from femo_tpu_torch.fea.space import Function, FunctionSpace
 from femo_tpu_torch.ops.block_tridiag import (
     BlockThomasFactor, BlockTridiagonalMatrix, BlockTridiagTemplate,
     pcg_fixed)
+from femo_tpu_torch.solvers.linear import LinearSolver
 
 # the port's CPU path is dispatch-bound: extra intra-op threads only
 # oversubscribe the cores that parallel test workers share
@@ -164,8 +175,109 @@ def test_pcg_fixed_matches(case, transpose):
 
 
 def test_factor_refuses_unported_modes(case):
+    """The factor holds (mat, Sinv, C) only: the JAX factor's
+    reduced-precision sweeps are not ported, and its scaled solve is the
+    wrapper around the factor of jacobi_scaled() that callers build."""
     fac = case["tmat"].factor()
-    b = torch.zeros(case["tmat"].n, dtype=torch.float64)
     for kw in ({"scale": torch.ones(1)}, {"sweep_dtype": torch.float32}):
-        with pytest.raises(NotImplementedError):
-            BlockThomasFactor(fac.mat, fac.Sinv, fac.C, **kw).solve(b)
+        with pytest.raises(TypeError):
+            BlockThomasFactor(fac.mat, fac.Sinv, fac.C, **kw)
+
+
+def test_jacobi_scaled_matches(case):
+    jsm, js = case["jmat"].jacobi_scaled()
+    sm, s = case["tmat"].jacobi_scaled()
+    assert _rel(s.numpy(), js) <= 1e-14
+    for a, b in ((sm.D, jsm.D), (sm.L, jsm.L), (sm.U, jsm.U)):
+        assert _rel(a.numpy(), b) <= 1e-14
+    x = case["rng"].standard_normal(case["jmat"].n)
+    assert _rel(case["tmat"].scale_vector(torch.as_tensor(x), s).numpy(),
+                case["jmat"].scale_vector(jnp.asarray(x), js)) <= 1e-14
+    # the scaled solve S F'^{-1} S b inverts A
+    b = torch.as_tensor(x)
+    fac = sm.factor()
+    y = case["tmat"].scale_vector(
+        fac.solve(case["tmat"].scale_vector(b, s)), s)
+    assert _rel(case["tmat"].matvec(y).numpy(), x) <= 1e-10
+
+
+# The Poisson system of tests/test_block_tridiag.py: -lap u + u on the unit
+# square 16, u = 0 on x = 0.
+
+
+def _poisson(FS, Fn, FD, dx_, dot_, grad_, assemble, bcs, DBC, mesh, **kw):
+    V = FS(mesh, ("CG", 1), **kw)
+    u = Fn(V, "u")
+    A = assemble(FD([dx_(lambda w, g: dot_(grad_(w.u), grad_(w.v))
+                         + w.u * w.v)], coeffs=[u], test=V), "u")
+    free, _ = bcs([DBC(V, 0.0, where=lambda x: np.isclose(x[0], 0))],
+                  V.n_dofs, **kw)
+    return A, free
+
+
+@pytest.fixture(scope="module")
+def poisson():
+    jm = jsquare(16)
+    jA, jfree = _poisson(JSpace, JFunction, JFormDef, jdx, jdot, jgrad,
+                         jassemble_matrix, jbc, JDirichletBC, jm)
+    A, free = _poisson(FunctionSpace, Function, FormDef, dx, dot, grad,
+                       assemble_matrix, bc_arrays, DirichletBC,
+                       mesh_from_jax(jm), device="cpu")
+    np.testing.assert_array_equal(free.numpy(), np.asarray(jfree))
+    b = np.random.default_rng(9).standard_normal(len(free))
+    return dict(jA=jA, jfree=jfree, A=A, free=free, b=b)
+
+
+def test_from_element_matrix_matches(poisson):
+    """The port lays the constrained operator out with its template and
+    the JAX package with scipy, so the two may order the dofs apart: they
+    are held to the same operator, A x and A^T x in dof order (1e-14)."""
+    jm = JMatrix.from_element_matrix(poisson["jA"], np.asarray(
+        poisson["jfree"]))
+    m = BlockTridiagonalMatrix.from_element_matrix(poisson["A"],
+                                                   poisson["free"])
+    assert m.n == jm.n
+    x = np.random.default_rng(3).standard_normal(m.n)
+    for mv, jmv in ((m.matvec, jm.matvec), (m.matvec_t, jm.matvec_t)):
+        assert _rel(mv(torch.as_tensor(x)).numpy(),
+                    jmv(jnp.asarray(x))) <= 1e-14
+
+
+@pytest.mark.parametrize("method", ["block_thomas", "cg_bt", "bicgstab_bt",
+                                    "gmres_bt"])
+@pytest.mark.parametrize("transpose", [False, True],
+                         ids=["solve", "solve_t"])
+def test_block_thomas_backends_match_jax(poisson, method, transpose):
+    """LinearSolver's block-Thomas backends: the direct solve (1e-12) and
+    Krylov preconditioned by the factor, of the transpose in solve_t
+    (1e-10, the Krylov stopping rule)."""
+    fac = LinearSolver(method=method).factor(poisson["A"], poisson["free"])
+    jfac = JLinearSolver(method=method).factor(poisson["jA"],
+                                               poisson["jfree"])
+    b = poisson["b"]
+    if transpose:
+        x, jx = fac.solve_t(torch.as_tensor(b)), jfac.solve_t(jnp.asarray(b))
+    else:
+        x, jx = fac.solve(torch.as_tensor(b)), jfac.solve(jnp.asarray(b))
+    tol = 1e-12 if method == "block_thomas" else 1e-10
+    assert _rel(x.numpy(), jx) <= tol
+    if method != "block_thomas":
+        assert fac.last_result.iters == jfac.last_result.iters
+    # the constrained residual
+    free, A = poisson["free"], poisson["A"]
+    mv = A.rmatvec if transpose else A.matvec
+    r = torch.where(free, mv(torch.where(free, x, 0.0)), x) \
+        - torch.as_tensor(b)
+    assert float(torch.linalg.norm(r)) <= 1e-9 * np.linalg.norm(b)
+
+
+def test_solve_refined_matches(poisson):
+    m = BlockTridiagonalMatrix.from_element_matrix(poisson["A"],
+                                                   poisson["free"])
+    jm = JMatrix.from_element_matrix(poisson["jA"], np.asarray(
+        poisson["jfree"]))
+    b = poisson["b"]
+    for refine in (0, 2):
+        x = m.factor().solve_refined(torch.as_tensor(b), refine)
+        jx = jm.factor().solve_refined(jnp.asarray(b), refine)
+        assert _rel(x.numpy(), jx) <= 1e-12

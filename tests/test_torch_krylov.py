@@ -146,7 +146,16 @@ def test_auto_method_and_unported_backends(system):
         == "dense"
     assert ls.resolve_method(4097) == "bicgstab"
     assert LinearSolver(symmetric=True).resolve_method(10**5) == "cg"
+    # the block-Thomas backends (held to the JAX package in
+    # tests/test_torch_block_tridiag.py) solve the constrained system
+    b = torch.as_tensor(system["b"])
+    free = torch.as_tensor(system["free"])
     for method in ("block_thomas", "cg_bt"):
-        with pytest.raises(NotImplementedError, match="block-Thomas"):
-            LinearSolver(method=method).factor(
-                system["A"], torch.as_tensor(system["free"]))
+        fac = LinearSolver(method=method).factor(system["A"], free)
+        x = fac.solve(b)
+        r = torch.where(free, system["A"].matvec(torch.where(free, x, 0.0)),
+                        x) - b
+        assert float(torch.linalg.norm(r)) <= TOL * float(
+            torch.linalg.norm(b))
+    with pytest.raises(ValueError, match="unknown"):
+        LinearSolver(method="nope_bt").factor(system["A"], free)

@@ -17,11 +17,12 @@ import sys
 
 import numpy as np
 import pytest
+import jax.numpy as jnp
 import torch
 
 from femo_tpu.fea import (
-    Function as JFunction, assemble_vector as jassemble_vector,
-    errorNorm as jerror_norm)
+    FormDef as JFormDef, Function as JFunction, dx as jdx,
+    assemble_vector as jassemble_vector, errorNorm as jerror_norm)
 from femo_tpu.graph.model import FEAModel as JFEAModel
 from femo_tpu.graph.optimizer import (
     OptimizationProblem as JProblem, SLSQP as JSLSQP)
@@ -265,17 +266,44 @@ def test_default_device_is_the_card(entry):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="exterior-facet"):
+    with pytest.raises(NotImplementedError, match="weak_bc"):
         build_fea(nel=2, weak_bc=True, device="cpu")
     fea, d = build_fea(nel=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="field outputs"):
+    # a field output needs its CG1 test space
+    with pytest.raises(ValueError, match="test space"):
         fea.add_field_output("p", FormDef([dx(lambda w, g: w.u)],
                                           coeffs=[d["u"]]), ["u"])
-    fea.solve_mode = "jit_dense"
-    with pytest.raises(NotImplementedError, match="eager"):
-        fea._state_op("u")
-    with pytest.raises(NotImplementedError, match="eager"):
-        ImplicitSolveOp(None, "u", ["f"], None, None, mode="jit_dense")
+    with pytest.raises(ValueError, match="jit_dense"):
+        ImplicitSolveOp(None, "u", ["f"], None, None, mode="jit")
+
+
+def test_jit_dense_mode_and_field_output_match_jax():
+    """solve_mode="jit_dense" (a fixed-count dense-LU Newton, one
+    iteration for this linear problem) gives the eager solve's state and
+    the JAX package's (1e-12); a field output projecting the state to CG1
+    gives the JAX package's (1e-12) and persists on its Function."""
+    f = np.random.default_rng(4).standard_normal(2 * 6 * 6)
+    fea, d = build_fea(nel=6, device="cpu")
+    u_eager = fea.solve("u", {"f": torch.as_tensor(f)}).numpy()
+    outs = []
+    for lib, build, FD, dx_, Model_, arr in (
+            ("port", lambda: build_fea(nel=6, device="cpu"), FormDef, dx,
+             FEAModel, torch.as_tensor),
+            ("jax", lambda: jbuild_fea(nel=6), JFormDef, jdx, JFEAModel,
+             jnp.asarray)):
+        fea2, d2 = build()
+        fea2.solve_mode = "jit_dense"
+        fea2.add_field_output(
+            "u_cg1", FD([dx_(lambda w, g: w.u * w.u * w.v)],
+                        coeffs=[d2["u"]], test=d2["V"]), ["u"])
+        out = Model_(fea=[fea2]).evaluate({"f": arr(f)})
+        outs.append((np.asarray(out["u"]), np.asarray(out["u_cg1"]),
+                     fea2.outputs_field_dict["u_cg1"]["func"].array))
+    (u, p, pf), (ju, jp, _) = outs
+    assert np.linalg.norm(u - ju) <= 1e-12 * np.linalg.norm(ju)
+    assert np.linalg.norm(u - u_eager) <= 1e-12 * np.linalg.norm(ju)
+    assert np.linalg.norm(p - jp) <= 1e-12 * np.linalg.norm(jp)
+    np.testing.assert_array_equal(pf.numpy(), p)
 
 
 def test_w1_modules_import_no_jax():

@@ -44,6 +44,25 @@ def test_layer_ranges_count_the_step(counted):
     assert calls["sweeps.K1"] == 0  # CPU tensors: no kernel launch
 
 
+@pytest.mark.parametrize("kw, factors, jacobians", [
+    (dict(refactor_every=3), 7, NEWTON + ADJOINTS),
+    (dict(refactor_every=3, freeze_operator=True), 7, 7),
+], ids=["refactor3", "freeze3"])
+def test_layer_ranges_count_the_reuse_step(kw, factors, jacobians):
+    """bench.py's configurations: one factor per three Newton iterations
+    (mesh motion 2 + 1 adjoint, EM 3 + 1), and with the frozen operator
+    one Jacobian per factor; 10 block solves per Newton iteration and
+    adjoint either way."""
+    step, (dv0, iq0), _ = build_motor_jit_step(
+        refine=0.5, device="cpu", **dict(ORACLE_CFG, **kw))
+    with layer_ranges() as lr:
+        step(dv0, iq0)
+    assert lr.calls["bt.factor"] == factors
+    assert lr.calls["assemble.jacobian"] == jacobians
+    assert lr.calls["bt.transpose"] == ADJOINTS
+    assert lr.calls["bt.solve"] == 10 * (NEWTON + ADJOINTS)
+
+
 def test_layer_ranges_restore_the_port(counted):
     _, saved = counted
     for k, (o, a) in LAYERS.items():
