@@ -70,9 +70,41 @@ non-zero without the final line:
    In phases 4 and 8-12 the K1/K2 counts are set to 0 just before each
    path and read just after; the factors, Jacobian assemblies and block
    solves are counted by the step profiler's layer ranges.
+13. determinism (run after phase 7): the assembly scatters sum through
+   owner tables in a fixed order, so two runs give the same bits: the
+   nel=260 W1 residual, its VJP, the Jacobian's diagonal, the nel=64
+   dense Jacobian, the refine-4 mesh-motion template fill; W1's
+   objective_gradient at nel=260 in two fresh simulators (equal loss and
+   gradient bits, equal BiCGStab counts, printed beside JAX's, and the
+   W1 oracle's gates); the card band's nonzeros.
+14. w1_weak: W1 with symmetric Nitsche weak BCs at nel=260 (68,121 dofs,
+   no strong BC), run and objective_gradient, against
+   oracles/slice_c_oracle.npz (loss 1e-8, gradient 1e-6).
+15. w2: nonlinear Poisson with symmetric Nitsche terms and SNES
+   backtracking at nel=260, run and objective_gradient, the same gates.
+16. jit_step: build_jit_opt_step(nel=260, "cg"), the matrix-free
+   Newton-Krylov step with its jvp/vjp matvecs (1e-8, 1e-6); entry() at
+   nel=32, dense (1e-12, 1e-10).
+17. shape: the W10 shape gradient of an energy functional with a ds term
+   on the nel=260 square, against the oracle and CPU tensors (1e-12).
+18. topopt: W4 SIMP at 160 x 80 quads (26,082 dofs, BiCGStab + Jacobi),
+   run and objective_gradient against the oracle (1e-8, 1e-6); the
+   example's 40 x 20 through SLSQP(maxiter=15), compliance below 0.7 of
+   its start.
+19. beam: W3 Hermite beam at 50 elements through SLSQP to the OpenMDAO
+   optimum (max |t - ref| < 1e-4).
+   In phases 14, 15 and 18 the K4/K4T counts are set to 0 just before
+   the path and read just after, and must equal BiCGStab's matvecs.
+   After each of these paths, K4/K4T are held against their plain
+   versions (f64 1e-14) on the path's own Jacobians: every element block
+   alone (W4's 8x8 quad-elasticity blocks too), then the matrix's
+   matvec/rmatvec, whose later blocks add into the first block's output,
+   twice bit for bit; in phase 14 K1/K2 against plain (f64 1e-12) and
+   timed on the block-Thomas factors that preconditioned the solves.
 
 Each phase prints its wall seconds.  It prints a JSON line describing
-the kernels (K1/K2 with their launches on every motor path), and last
+the kernels (K1/K2 with their launches on every motor path, K4/K4T on
+W1, W1 with weak BCs, W2 and W4), and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -99,18 +131,26 @@ from femo_tpu_torch.models.motor.model import (
     build_motor_jit_step, build_motor_model, edge_delta_design_space)
 from femo_tpu_torch.models.motor.unstructured import write_motor_msh
 from femo_tpu_torch.models.motor.pde import source_tables
+from femo_tpu_torch.entry import entry
 from femo_tpu_torch.fea.assemble import assemble_matrix, compile_form
-from femo_tpu_torch.fea.forms import FormDef, dot, dx, grad
-from femo_tpu_torch.fea.space import Function
+from femo_tpu_torch.fea.fea import FEA
+from femo_tpu_torch.fea.forms import FormDef, dot, ds, dx, grad
+from femo_tpu_torch.fea.shape import shape_gradient
+from femo_tpu_torch.fea.space import Function, FunctionSpace
 from femo_tpu_torch.fea.utils import errorNorm
 from femo_tpu_torch.graph.model import FEAModel
 from femo_tpu_torch.graph.optimizer import OptimizationProblem, SLSQP
 from femo_tpu_torch.graph.simulator import Simulator
-from femo_tpu_torch.models.poisson import build_fea, on_boundary
+from femo_tpu_torch.mesh.generators import create_unit_square_mesh
+from femo_tpu_torch.models.beam import OPENMDAO_THICK_REF, build_beam_problem
+from femo_tpu_torch.models.poisson import (
+    build_fea, build_jit_opt_step, on_boundary)
+from femo_tpu_torch.models.topopt import build_topopt_model
 from femo_tpu_torch.ops import bt_sweeps, spmv
 from femo_tpu_torch.ops.block_tridiag import BlockTridiagonalMatrix
 from femo_tpu_torch.solvers.krylov import cg
-from femo_tpu_torch.solvers.linear import KrylovFactorization, LinearSolver
+from femo_tpu_torch.solvers.linear import (
+    BlockThomasKrylovFactorization, KrylovFactorization, LinearSolver)
 from femo_tpu_torch.tools.profile_step import layer_ranges
 
 # experiments/motor_latency_oracle.json (the JAX package, f64, CPU)
@@ -201,9 +241,54 @@ def cond(mat):
     return float(torch.linalg.cond(A))
 
 
-def check_sweeps(fac, bb, label, err):
-    """Kernel vs plain for K1, K2 and the whole solve, and a second launch
-    of each kernel bit for bit against the first; returns rel err."""
+def step_residuals(fac, bb, z, x, z_in):
+    """Each step of the two sweeps recomputed in plain PyTorch from the
+    kernel's own previous value: ||z - Sinv (b - L z_prev)|| / ||z|| for
+    K1 and ||x - (z_in - C x_next)|| / ||x|| for K2 (z_in: the z K2 was
+    given).  A wrong step shows whatever the system's conditioning; a
+    right one leaves only one step's rounding."""
+    m = fac.mat
+    mv = lambda M, v: torch.bmm(M, v[..., None])[..., 0]  # noqa: E731
+    z_prev = torch.cat([torch.zeros_like(z[:1]), z[:-1]])
+    x_next = torch.cat([x[1:], torch.zeros_like(x[:1])])
+    rz = z - mv(fac.Sinv, bb - mv(m.L, z_prev))
+    rx = x - (z_in - mv(fac.C, x_next))
+    return (float(torch.linalg.norm(rz) / torch.linalg.norm(z)),
+            float(torch.linalg.norm(rx) / torch.linalg.norm(x)))
+
+
+def reordered_spread(fac, bb, x_p, seeds=3):
+    """How far the plain solve moves when the sums inside its block
+    products run in another order (a random permutation of each block's
+    columns, `seeds` of them): the rounding the factor's recurrences
+    amplify, the most two correct evaluations may differ by."""
+    m, B = fac.mat, bb.shape[1]
+    out = 0.0
+    for seed in range(seeds):
+        p = torch.as_tensor(np.random.default_rng(100 + seed).permutation(B),
+                            device=bb.device)
+        Sp, Lp, Cp = fac.Sinv[:, :, p], m.L[:, :, p], fac.C[:, :, p]
+        z, zs = torch.zeros_like(bb[0]), []
+        for i in range(bb.shape[0]):
+            z = Sp[i] @ (bb[i] - Lp[i] @ z[p])[p]
+            zs.append(z)
+        x, xs = torch.zeros_like(bb[0]), [None] * bb.shape[0]
+        for i in range(bb.shape[0] - 1, -1, -1):
+            x = zs[i] - Cp[i] @ x[p]
+            xs[i] = x
+        out = max(out, rel(torch.stack(xs), x_p))
+    return out
+
+
+def check_sweeps(fac, bb, label, err, spread=False):
+    """Kernel vs plain for K1, K2 and the whole solve, each sweep's steps
+    recomputed from the kernel's own values (step_residuals), and a
+    second launch of each kernel bit for bit against the first; returns
+    rel err.  The bar of the kernel-vs-plain difference is SWEEP_TOL; with
+    `spread`, for a factor whose recurrences amplify rounding past it,
+    the larger of SWEEP_TOL and 10 times the plain solve's own spread
+    under reordered sums (reordered_spread); the step residuals are held
+    to SWEEP_TOL either way."""
     m = fac.mat
     z_k = bt_sweeps.fwd_sweep_cuda(fac.Sinv, m.L, bb)
     z_k2 = bt_sweeps.fwd_sweep_cuda(fac.Sinv, m.L, bb)
@@ -214,12 +299,21 @@ def check_sweeps(fac, bb, label, err):
     x_solve = bt_sweeps.bt_sweep_solve(fac.Sinv, m.L, fac.C, bb)
     torch.cuda.synchronize()
     r = max(rel(z_k, z_p), rel(x_k, x_p), rel(x_solve, x_p))
+    res = step_residuals(fac, bb, z_k, x_k, z_p)
     tol = SWEEP_TOL[bb.dtype]
+    bar, why = tol, ""
+    if spread:
+        s = reordered_spread(fac, bb, x_p)
+        bar = max(tol, 10 * s)
+        why = f", 10x the plain solve's spread {s:.3e} under reordered sums"
     same = torch.equal(z_k, z_k2) and torch.equal(x_k, x_k2)
-    print(f"  {label}: rel L2 {r:.3e} (tol {tol:.0e}), second launch "
+    print(f"  {label}: rel L2 {r:.3e} (bar {bar:.0e}{why}); step residuals "
+          f"K1 {res[0]:.3e}, K2 {res[1]:.3e} (tol {tol:.0e}); second launch "
           f"bit-identical {same}")
-    if not r <= tol:
+    if not r <= bar:
         raise AssertionError(f"{label}: kernel disagrees with plain, {r}")
+    if not max(res) <= tol:
+        raise AssertionError(f"{label}: a sweep step is wrong, {res}")
     if not same:
         raise AssertionError(f"{label}: two launches differ")
     if err is not None:
@@ -507,7 +601,8 @@ def phase_refine4(err):
           "(least of 2)")
     return [time_sweeps(fac, bb, f"refine-4 {which}")
             for which, (fac, bb) in check_real_factors(info, dv0, iq0, 4,
-                                                       err).items()], warm
+                                                       err).items()], \
+        warm, info, dv0
 
 
 # ---------------------------------------------------------------------------
@@ -1122,26 +1217,34 @@ def phase_spmv():
 
 class krylov_log:
     """Context: record the Krylov iterations of every LinearSolver solve,
-    by kind ("K4" for solve, whose matvec is K4; "K4T" for solve_t)."""
+    by kind ("K4" for solve, whose matvec is K4; "K4T" for solve_t), of
+    the Krylov and the block-Thomas-preconditioned Krylov backends, and
+    the factorization objects that solved (`factors`, each once)."""
+
+    CLASSES = (KrylovFactorization, BlockThomasKrylovFactorization)
 
     def __enter__(self):
-        self.saved = (KrylovFactorization.solve, KrylovFactorization.solve_t)
-        self.solves = []
+        self.saved = [(c, c.__dict__["solve"], c.__dict__["solve_t"])
+                      for c in self.CLASSES]
+        self.solves, self.factors = [], []
 
         def wrap(fn, kind):
             def wrapped(fac, b):
                 x = fn(fac, b)
                 self.solves.append((kind, fac.method,
                                     int(fac.last_result.iters)))
+                if not any(f is fac for f in self.factors):
+                    self.factors.append(fac)
                 return x
             return wrapped
 
-        KrylovFactorization.solve = wrap(self.saved[0], "K4")
-        KrylovFactorization.solve_t = wrap(self.saved[1], "K4T")
+        for c, solve, solve_t in self.saved:
+            c.solve, c.solve_t = wrap(solve, "K4"), wrap(solve_t, "K4T")
         return self
 
     def __exit__(self, *exc):
-        KrylovFactorization.solve, KrylovFactorization.solve_t = self.saved
+        for c, solve, solve_t in self.saved:
+            c.solve, c.solve_t = solve, solve_t
 
     def take(self):
         out, self.solves = self.solves, []
@@ -1158,9 +1261,10 @@ def matvecs(solves):
     return out
 
 
-def w1_model(nel, device):
-    """The main path of examples/run_poisson_opt.py, through the port."""
-    fea, d = build_fea(nel=nel, device=device)
+def w1_model(nel, device, **kw):
+    """The main path of examples/run_poisson_opt.py, through the port
+    (kw: build_fea's weak_bc and sym)."""
+    fea, d = build_fea(nel=nel, device=device, **kw)
     model = FEAModel(fea=[fea])
     model.create_input("f", shape=d["W"].n_dofs, val=0.5)
     model.add_design_variable("f")
@@ -1275,6 +1379,495 @@ def phase_w1_card_vs_cpu():
         raise AssertionError("W1 card and CPU runs disagree")
 
 
+# ---------------------------------------------------------------------------
+# Slice C: the deterministic assembly scatter, then the small workloads (W1
+# with weak BCs, the Poisson step as one function, W2, W10 shape gradients,
+# W4 SIMP topology, W3 Hermite beam), each against the JAX package's f64
+# values in oracles/slice_c_oracle.npz
+# ---------------------------------------------------------------------------
+
+# written by `JAX_PLATFORMS=cpu PYTHONPATH=. python oracles/slice_c_oracle.py`;
+# each entry beside the configuration it was computed for, checked here
+SLICE_C_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "oracles", "slice_c_oracle.npz")
+SLICE_C_CONFIGS = {
+    "w1_weak": dict(nel=260, weak_bc=True, sym=True, f=0.5,
+                    objective="l2_functional", scaler=1e5,
+                    linear_solver="bicgstab_bt"),
+    "w2": dict(nel=260, sym=True, beta=10.0, pde_solver="SNES", f=1.0,
+               objective="J"),
+    "jit_step": dict(nel=260, solver="cg", f=0.5),
+    "entry": dict(nel=32, solver="dense", f=0.5),
+    "shape": dict(nel=260, functional="energy", u="x^2 + y/2",
+                  ds="0.1 u h"),
+    "topopt": dict(num_el_x=160, num_el_y=80, density=0.4,
+                   linear_solver="auto"),
+    "topopt_slsqp": dict(num_el_x=40, num_el_y=20,
+                         solve_mode="jit_dense", maxiter=15, ftol=1e-9),
+}
+DET_NEL_DENSE = 64  # to_dense in the determinism phase (4,225 dofs)
+DEVICE = "cuda"  # where the slice C phases run
+
+
+def slice_c_oracle(key):
+    """The oracle file, after checking that entry `key` was computed for
+    the configuration driven here."""
+    oracle = np.load(SLICE_C_ORACLE)
+    got = json.loads(str(oracle[f"{key}_config"]))
+    if got != json.loads(json.dumps(SLICE_C_CONFIGS[key])):
+        raise AssertionError(f"oracle entry {key} is for {got}, not "
+                             f"{SLICE_C_CONFIGS[key]}")
+    return oracle
+
+
+def check_oracle_values(label, val, grad, want_val, want_grad, loss_tol,
+                        grad_tol):
+    """A value (relative) and a gradient (relative L2) against the JAX
+    package's."""
+    g = grad.detach().cpu().numpy().reshape(np.shape(want_grad))
+    rl = abs(float(val) - float(want_val)) / abs(float(want_val))
+    rg = float(np.linalg.norm(g - want_grad) / np.linalg.norm(want_grad))
+    print(f"  {label}: value {float(val)!r}, JAX {float(want_val)!r}, rel "
+          f"{rl:.3e} (tol {loss_tol:.0e}); gradient ({g.size}) rel L2 "
+          f"{rg:.3e} (tol {grad_tol:.0e})")
+    if not (rl <= loss_tol and rg <= grad_tol and np.all(np.isfinite(g))):
+        raise AssertionError(f"{label} disagrees with the JAX oracle")
+
+
+def bits(t):
+    """The raw 64-bit patterns of an f64 tensor (equal bits, not values)."""
+    return t.detach().contiguous().view(torch.int64)
+
+
+def same_bits(label, a, b):
+    ok = torch.equal(bits(a), bits(b))
+    n = int((bits(a) != bits(b)).sum())
+    print(f"  {label}: {a.numel()} values, {n} differ in their bits "
+          "between the two runs")
+    if not ok:
+        raise AssertionError(f"{label}: two runs differ")
+
+
+def phase_determinism(info4, dv4):
+    """F1: the assembly scatters give the same bits on every run.  Twice
+    each: the nel=260 W1 residual, its VJP, the Jacobian's diagonal, the
+    dense Jacobian at nel=64, the refine-4 motor mesh-motion template fill;
+    then W1's objective_gradient at nel=260 in two fresh simulators: equal
+    loss and gradient bits and equal BiCGStab counts, gated on the W1
+    oracle, and the card band's nonzeros."""
+    rng = np.random.default_rng(17)
+    fea, d = build_fea(nel=W1_NEL, device=DEVICE)
+    cf = compile_form(fea.states_dict["u"]["residual_form"])
+    u = torch.as_tensor(rng.standard_normal(d["V"].n_dofs), device=DEVICE)
+    f = torch.as_tensor(rng.standard_normal(d["W"].n_dofs), device=DEVICE)
+    cot = torch.as_tensor(rng.standard_normal(d["V"].n_dofs),
+                          device=DEVICE)
+
+    def residual_vjp():
+        _, pull = torch.func.vjp(
+            lambda uu, ff: cf.vector({"u": uu, "f": ff}), u, f)
+        return torch.cat(pull(cot))
+
+    for label, fn in (
+            (f"W1 residual vector, nel={W1_NEL}",
+             lambda: cf.vector({"u": u, "f": f})),
+            (f"its VJP (u and f), nel={W1_NEL}", residual_vjp),
+            (f"Jacobian diagonal, nel={W1_NEL}",
+             lambda: cf.matrix({"u": u, "f": f}, "u").diagonal())):
+        same_bits(label, fn(), fn())
+    fea_s, d_s = build_fea(nel=DET_NEL_DENSE, device=DEVICE)
+    cf_s = compile_form(fea_s.states_dict["u"]["residual_form"])
+    vs = {"u": torch.as_tensor(rng.standard_normal(d_s["V"].n_dofs),
+                               device=DEVICE),
+          "f": d_s["f"].array}
+    same_bits(f"to_dense, nel={DET_NEL_DENSE}",
+              *(cf_s.matrix(vs, "u").to_dense() for _ in range(2)))
+    tpl, jac = info4["jac"]["mm"]
+    g = edge_delta_design_space(info4["mesh"], info4["Vmm"])[0](dv4)
+    blocks = jac(0.5 * g, {"uhat_bc": g})
+    fills = [torch.stack(tpl.fill(blocks)) for _ in range(2)]
+    same_bits(f"refine-4 mesh-motion template fill (nb={tpl.nb}, "
+              f"B={tpl.B})", *fills)
+
+    runs = []
+    for _ in range(2):
+        sim, _, _ = w1_model(W1_NEL, DEVICE)
+        with krylov_log() as log:
+            sim.run()
+            val, grads, _ = sim.objective_gradient("l2_functional", ["f"])
+            runs.append((val, grads["f"], [(k, it) for k, _, it in
+                                           log.take()]))
+    (v0, g0, it0), (v1, g1, it1) = runs
+    print(f"  W1 objective_gradient at nel={W1_NEL}, two fresh simulators: "
+          f"BiCGStab iterations {it0} and {it1} (JAX: forward "
+          f"{W1_KRYLOV_ITERS['run'][0]}, adjoint "
+          f"{W1_KRYLOV_ITERS['objective_gradient'][0]})")
+    same_bits("W1 loss", v0[None], v1[None])
+    same_bits("W1 gradient", g0, g1)
+    if it0 != it1:
+        raise AssertionError(f"BiCGStab counts differ: {it0} vs {it1}")
+    oracle = np.load(W1_ORACLE)
+    check_oracle_values("W1 against its oracle", v0, g0, W1_LOSS,
+                        oracle["grad"], 1e-8, 1e-6)
+    K, _ = w1_stiffness(W1_NEL)
+    band, bw, _ = spmv.banded_from_element_matrix(K)
+    nnz, tiny = band_nonzeros(band)
+    print(f"  W1 stiffness band on the card (nel={W1_NEL}, b={bw}): "
+          f"band_nnz {nnz}, of which {tiny} rounding leftovers (|entry| <= "
+          f"1e-14 of the largest)")
+    return dict(krylov=it0, band_nnz=nnz, band_tiny=tiny)
+
+
+def counted_solve_path(label, fn, fea, state):
+    """fn() with the K4/K4T counts reset just before and read just after,
+    and every LinearSolver solve logged: (seconds, fn's result, launches,
+    solves, the factorizations that solved).  The launches must be BiCGStab's matvecs (1 + 2 per
+    iteration, each solve) times the element blocks of a matvec, one per
+    term of the state's residual form."""
+    blocks = len(compile_form(fea.states_dict[state]["residual_form"]).terms)
+    reset(spmv.launches)
+    with krylov_log() as log:
+        t, out = synced(fn)
+        solves = log.take()
+    launches = {k: spmv.launches[k] for k in ("K4", "K4T")}
+    factors = log.factors
+    want = {k: blocks * n for k, n in matvecs(solves).items()}
+    print(f"  {label}: {t:.3f} s; BiCGStab iterations "
+          f"{[(s[0], s[2]) for s in solves]}; K4 {launches['K4']}, K4T "
+          f"{launches['K4T']} launches (expected {want['K4']} and "
+          f"{want['K4T']}: {blocks} element blocks per matvec)")
+    if launches != want or launches["K4"] == 0:
+        raise AssertionError(f"{label}: K4/K4T launches {launches}, want "
+                             f"{want}")
+    return t, out, launches, solves, factors
+
+
+def check_element_matrices(label, factors):
+    """K4/K4T on a path's own Jacobians (the ElementMatrix of every
+    factorization that solved) against their plain versions, f64
+    SPMV_TOL: each element block alone (a block whose plain product is
+    exactly 0, as a load term's, must give exactly 0), then
+    matvec/rmatvec, where every block after the first adds into the
+    first's output (the kernel's accumulate mode), and a second
+    matvec/rmatvec bit for bit against the first.  Returns max |kernel -
+    plain| by kernel.  Called after the path's launches are read: these
+    launches count for no path."""
+    def rel0(got, want):
+        n = float(torch.linalg.norm(want))
+        if n == 0.0:
+            return 0.0 if not bool(got.any()) else float("inf")
+        return float(torch.linalg.norm(got - want)) / n
+
+    rng = np.random.default_rng(11)
+    tol = SPMV_TOL[torch.float64]
+    err = {"K4": 0.0, "K4T": 0.0}
+    for j, fac in enumerate(factors):
+        A = fac.emat
+        n_rows, n_cols = A.shape
+        dev = A.blocks[0].A.device
+        x = torch.as_tensor(rng.standard_normal(n_cols), device=dev)
+        y = torch.as_tensor(rng.standard_normal(n_rows), device=dev)
+        r = {"K4": [], "K4T": []}
+        plain = {"K4": 0.0, "K4T": 0.0}
+        for b in A.blocks:
+            pair = {"K4": (spmv.element_spmv_cuda(b.A, b.plan, x),
+                           spmv.element_spmv_plain(b.A, b.rows, b.cols, x,
+                                                   n_rows)),
+                    "K4T": (spmv.element_rspmv_cuda(b.A, b.plan, y),
+                            spmv.element_rspmv_plain(b.A, b.rows, b.cols,
+                                                     y, n_cols))}
+            for k, (got, want) in pair.items():
+                r[k].append(rel0(got, want))
+                err[k] = max(err[k], float((got - want).abs().max()))
+                plain[k] = plain[k] + want
+        got = {"K4": A.matvec(x), "K4T": A.rmatvec(y)}
+        again = {"K4": A.matvec(x), "K4T": A.rmatvec(y)}
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[k], again[k]) for k in got)
+        for k in got:
+            r[k].append(rel0(got[k], plain[k]))
+            err[k] = max(err[k], float((got[k] - plain[k]).abs().max()))
+        shapes = ", ".join("x".join(map(str, b.A.shape)) for b in A.blocks)
+        print(f"  {label}, Jacobian {j} ({shapes}), f64 vs plain, rel L2 "
+              f"per block then accumulated (tol {tol:.0e}): K4 "
+              f"{', '.join(f'{v:.3e}' for v in r['K4'])}; K4T "
+              f"{', '.join(f'{v:.3e}' for v in r['K4T'])}; second call "
+              f"bit-identical {same}")
+        if not all(v <= tol for v in r["K4"] + r["K4T"]):
+            raise AssertionError(f"{label}: K4/K4T disagree with plain on "
+                                 f"Jacobian {j}")
+        if not same:
+            raise AssertionError(f"{label}: two K4/K4T launches differ")
+    return err
+
+
+def model_path(sim, of, wrt):
+    """Simulator.run then objective_gradient(of, [wrt])."""
+    def fn():
+        sim.run()
+        return sim.objective_gradient(of, [wrt])
+    return fn
+
+
+def phase_w1_weak(err):
+    """W1 with Nitsche weak BCs (sym) at nel=260, no strong BC, BiCGStab
+    preconditioned by the block-Thomas factor: run and objective_gradient,
+    K4/K4T and K1/K2 counted, against the oracle (1e-8, 1e-6).  Then K1/K2
+    against plain on the block-Thomas factors that ran (folding max
+    |kernel - plain| into err, and timed at their shape) and K4/K4T on the
+    path's own Jacobians."""
+    c = SLICE_C_CONFIGS["w1_weak"]
+    oracle = slice_c_oracle("w1_weak")
+    t0 = time.perf_counter()
+    sim, fea, d = w1_model(c["nel"], DEVICE, weak_bc=True, sym=c["sym"])
+    # the JAX package's default, BiCGStab + Jacobi, does not converge on
+    # this Nitsche system (beta = 0.1); both packages precondition with the
+    # block-Thomas factor
+    fea.linear_solver = LinearSolver(c["linear_solver"])
+    print(f"W1 weak BCs at nel={c['nel']}, f64, {DEVICE}: "
+          f"{d['mesh'].n_cells} triangles, {d['V'].n_dofs} CG1 dofs, "
+          f"{len(fea.bc)} strong BCs, "
+          f"{fea.linear_solver.resolve_method(d['V'].n_dofs)} + "
+          f"{fea.linear_solver.pc}; build {time.perf_counter() - t0:.2f} s; "
+          f"JAX BiCGStab run {list(oracle['w1_weak_run_krylov_iters'])}, "
+          f"gradient {list(oracle['w1_weak_grad_krylov_iters'])}")
+    reset(bt_sweeps.launches)
+    t, (val, grads, _), launches, _, factors = counted_solve_path(
+        "run + objective_gradient",
+        model_path(sim, c["objective"], "f"), fea, "u")
+    launches.update(bt_sweeps.launches)
+    print(f"  K1 {launches['K1']}, K2 {launches['K2']} launches (the "
+          "block-Thomas preconditioner)")
+    if not (launches["K1"] > 0 and launches["K2"] > 0):
+        raise AssertionError("the preconditioner launched no sweep")
+    check_oracle_values("W1 weak", val, grads["f"], oracle["w1_weak_loss"],
+                        oracle["w1_weak_grad"], 1e-8, 1e-6)
+    rng = np.random.default_rng(13)
+    ran = []
+    for fac in factors:
+        # the factor of the operator (solve) and of its transpose (solve_t)
+        for name, f in (("factor", fac.bt._f), ("transpose factor",
+                                                fac.bt._ft)):
+            if f is not None:
+                nb, B = f.Sinv.shape[:2]
+                bb = torch.as_tensor(rng.standard_normal((nb, B)),
+                                     dtype=torch.float64,
+                                     device=f.Sinv.device)
+                check_sweeps(f, bb, f"w1_weak {name} nb={nb} B={B} "
+                             "float64", err, spread=True)
+                ran.append((f, bb))
+    if not ran:
+        raise AssertionError("no block-Thomas factor preconditioned W1 weak")
+    sweeps = time_sweeps(*ran[0], "w1_weak")
+    spmv_err = check_element_matrices("w1_weak", factors)
+    t_warm, _ = synced(lambda: sim.objective_gradient(c["objective"],
+                                                      ["f"]))
+    print(f"  warm objective_gradient {t_warm:.3f} s")
+    return dict(launches=launches, seconds=t, warm=t_warm, err=spmv_err,
+                sweeps=sweeps)
+
+
+def w2_fea(nel, sym=True, beta=10.0, device=None):
+    """W2 in the port, built as the JAX package's
+    tests/test_nonlinear_poisson.py builds it: -lap u + u^3 = f with
+    Nitsche terms on the boundary (tag 1), PDE_SOLVER="SNES"."""
+    device = device or DEVICE
+    mesh = create_unit_square_mesh(nel)
+    mesh.mark_boundary_facets(1)
+    V = FunctionSpace(mesh, ("CG", 1), device=device)
+    W = FunctionSpace(mesh, ("DG", 0), device=device)
+    u, f = Function(V, "u"), Function(W, "f")
+    sgn = 1.0 if sym else -1.0
+
+    def interior(w, g):
+        return dot(grad(w.u), grad(w.v)) + w.u**3 * w.v - w.f * w.v
+
+    def boundary(w, g):
+        ue = torch.sin(2 * np.pi * g.x[0]) * torch.sin(np.pi * g.x[1])
+        r = (-dot(grad(w.u), g.n) * w.v
+             + sgn * (ue - w.u) * dot(grad(w.v), g.n))
+        if sym:
+            r = r + beta / g.h * (w.u - ue) * w.v
+        return r
+
+    residual = FormDef([dx(interior), ds(boundary, tag=1)], coeffs=[u, f],
+                       test=V)
+    u_ex = Function(V, "u_ex").interpolate(
+        lambda x: np.sin(2 * np.pi * x[0]) * np.sin(np.pi * x[1]))
+    obj = FormDef(
+        [dx(lambda w, g: 0.5 * (w.u - w.u_ex) ** 2 + 3e-7 * w.f**2)],
+        coeffs=[u, u_ex, f])
+    fea = FEA(mesh)
+    fea.PDE_SOLVER = "SNES"
+    fea.add_input("f", f)
+    fea.add_state("u", u, residual, ["f"])
+    fea.add_output("J", "scalar", obj, ["u", "f"])
+    return fea, V, W
+
+
+def phase_w2():
+    """W2 (symmetric Nitsche, SNES backtracking) at nel=260: run and
+    objective_gradient, K4/K4T counted, against the oracle."""
+    c = SLICE_C_CONFIGS["w2"]
+    oracle = slice_c_oracle("w2")
+    fea, V, W = w2_fea(c["nel"], c["sym"], c["beta"])
+    model = FEAModel(fea=[fea])
+    model.create_input("f", shape=W.n_dofs, val=c["f"])
+    model.add_design_variable("f")
+    model.add_objective(c["objective"])
+    sim = Simulator(model)
+    print(f"W2 at nel={c['nel']}, f64, {DEVICE}: {V.n_dofs} CG1 dofs, "
+          f"{fea.linear_solver.resolve_method(V.n_dofs)} + "
+          f"{fea.linear_solver.pc}, Newton with backtracking; JAX BiCGStab "
+          f"run {list(oracle['w2_run_krylov_iters'])}, gradient "
+          f"{list(oracle['w2_grad_krylov_iters'])}")
+    t, (val, grads, _), launches, _, factors = counted_solve_path(
+        "run + objective_gradient", model_path(sim, c["objective"], "f"),
+        fea, "u")
+    check_oracle_values("W2", val, grads["f"], oracle["w2_loss"],
+                        oracle["w2_grad"], 1e-8, 1e-6)
+    return dict(launches=launches, seconds=t,
+                err=check_element_matrices("w2", factors))
+
+
+def phase_jit_step():
+    """build_jit_opt_step(nel=260, "cg") (matrix-free Newton-Krylov, jvp
+    and vjp matvecs), value and gradient against the oracle (1e-8, 1e-6);
+    entry() (nel=32, dense) against it (1e-12, 1e-10)."""
+    c, ce = SLICE_C_CONFIGS["jit_step"], SLICE_C_CONFIGS["entry"]
+    oracle = slice_c_oracle("jit_step")
+    slice_c_oracle("entry")
+    step, f0 = build_jit_opt_step(nel=c["nel"], solver=c["solver"])
+    t_cold, (val, g) = synced(lambda: step(f0))
+    check_oracle_values(f"jit step nel={c['nel']} cg", val, g,
+                        oracle["jit_step_loss"], oracle["jit_step_grad"],
+                        1e-8, 1e-6)
+    t_warm, _ = synced(lambda: step(f0))
+    fn, args = entry()
+    t_e, (ev, eg) = synced(lambda: fn(*args))
+    check_oracle_values(f"entry() nel={ce['nel']} dense", ev, eg,
+                        oracle["entry_loss"], oracle["entry_grad"], 1e-12,
+                        1e-10)
+    t_ew, _ = synced(lambda: fn(*args))
+    print(f"  wall time: jit step first {t_cold:.3f} s, warm {t_warm:.3f} "
+          f"s; entry() first {t_e:.3f} s, warm {t_ew:.3f} s")
+    return dict(cold=t_cold, warm=t_warm, entry=t_ew)
+
+
+def energy_form(nel, device):
+    """tests/test_shape_derivative.py's energy functional: Dirichlet energy
+    of u = x^2 + y/2 plus 0.1 u h on the boundary."""
+    mesh = create_unit_square_mesh(nel)
+    mesh.mark_boundary_facets(1)
+    V = FunctionSpace(mesh, ("CG", 1), device=device)
+    u = Function(V, "u").interpolate(lambda x: x[0] ** 2 + 0.5 * x[1])
+    return FormDef([dx(lambda w, g: dot(grad(w.u), grad(w.u))),
+                    ds(lambda w, g: 0.1 * w.u * g.h, tag=1)], coeffs=[u])
+
+
+def phase_shape():
+    """shape_gradient of the energy functional on the nel=260 square, on
+    the card against the oracle and against CPU tensors (1e-12 each)."""
+    c = SLICE_C_CONFIGS["shape"]
+    want = slice_c_oracle("shape")["shape_grad"]
+    form = energy_form(c["nel"], DEVICE)
+    t_cold, g = synced(lambda: shape_gradient(form))
+    t_warm, _ = synced(lambda: shape_gradient(form))
+    g_cpu = shape_gradient(energy_form(c["nel"], "cpu"))
+    r_or = float(np.linalg.norm(g.cpu().numpy() - want)
+                 / np.linalg.norm(want))
+    r_cpu = rel(g.cpu(), g_cpu)
+    print(f"shape gradient at nel={c['nel']} ({tuple(g.shape)}): rel L2 "
+          f"{r_or:.3e} against the JAX oracle, {r_cpu:.3e} against CPU "
+          f"tensors (tol 1e-12 each); first {t_cold:.3f} s, warm "
+          f"{t_warm:.3f} s")
+    if not (r_or <= 1e-12 and r_cpu <= 1e-12):
+        raise AssertionError("shape gradient is wrong")
+    return dict(warm=t_warm)
+
+
+def phase_topopt():
+    """W4 at 160 x 80 (BiCGStab + Jacobi, K4/K4T every iteration): run and
+    objective_gradient against the oracle; the example's 40 x 20
+    (jit_dense) through SLSQP(maxiter=15): compliance below 0.7 of its
+    start, as tests/test_topopt.py requires."""
+    c, cs = SLICE_C_CONFIGS["topopt"], SLICE_C_CONFIGS["topopt_slsqp"]
+    oracle = slice_c_oracle("topopt")
+    t0 = time.perf_counter()
+    model, fea, d = build_topopt_model(c["num_el_x"], c["num_el_y"])
+    sim = Simulator(model)
+    n = d["V"].n_dofs
+    print(f"W4 SIMP at {c['num_el_x']}x{c['num_el_y']} quads, f64, {DEVICE}: "
+          f"{n} displacement dofs (JAX {int(oracle['topopt_n_dofs'])}), "
+          f"{d['W'].n_dofs} densities, "
+          f"{fea.linear_solver.resolve_method(n)} + {fea.linear_solver.pc}; "
+          f"build {time.perf_counter() - t0:.2f} s; JAX BiCGStab run "
+          f"{list(oracle['topopt_run_krylov_iters'])}, gradient "
+          f"{list(oracle['topopt_grad_krylov_iters'])}")
+    t, (val, grads, out), launches, _, factors = counted_solve_path(
+        "run + objective_gradient",
+        model_path(sim, "compliance", "density_unfiltered"), fea,
+        "displacements")
+    check_oracle_values("W4 compliance", val, grads["density_unfiltered"],
+                        oracle["topopt_compliance"], oracle["topopt_grad"],
+                        1e-8, 1e-6)
+    if abs(float(out["avg_density"]) - float(oracle["topopt_avg_density"])) \
+            > 1e-12:
+        raise AssertionError("avg_density disagrees with the oracle")
+    spmv_err = check_element_matrices("topopt", factors)
+    del factors
+
+    oracle_s = slice_c_oracle("topopt_slsqp")
+    model, fea, d = build_topopt_model(cs["num_el_x"], cs["num_el_y"])
+    fea.solve_mode = cs["solve_mode"]
+    sim = Simulator(model)
+    c0 = float(sim.run()["compliance"])
+    prob = OptimizationProblem(sim, "topo")
+    t_opt, res = synced(lambda: SLSQP(prob, ftol=cs["ftol"],
+                                      maxiter=cs["maxiter"]).solve())
+    c1 = float(sim.outputs["compliance"])
+    avg = float(sim.outputs["avg_density"])
+    print(f"  SLSQP(maxiter={cs['maxiter']}) at {cs['num_el_x']}x"
+          f"{cs['num_el_y']}: compliance {c0!r} -> {c1!r} (JAX "
+          f"{float(oracle_s['topopt_slsqp_c0'])!r} -> "
+          f"{float(oracle_s['topopt_slsqp_c1'])!r}), avg density {avg!r}, "
+          f"nit {res.nit}, {t_opt:.3f} s")
+    if not (c1 < 0.7 * c0 and avg <= 0.4 + 1e-6 and abs(
+            c0 - float(oracle_s["topopt_slsqp_c0"])) <= 1e-10 * c0):
+        raise AssertionError("topology optimization did not reduce the "
+                             "compliance enough")
+    return dict(launches=launches, seconds=t, slsqp_seconds=t_opt,
+                err=spmv_err)
+
+
+def phase_beam():
+    """W3 at the reference's 50 elements, as in
+    examples/run_thickness_opt_cantilever_beam.py: jit_dense, SLSQP to the
+    OpenMDAO optimum (max |t - ref| < 1e-4)."""
+    fea, d = build_beam_problem(nel=50)
+    fea.linear_problem = True
+    fea.solve_mode = "jit_dense"
+    model = FEAModel(fea=[fea])
+    model.create_input("thickness", shape=50, val=0.1)
+    model.add_design_variable("thickness", lower=1e-2, upper=10.0,
+                              scaler=10.0)
+    model.add_objective("compliance", scaler=1e-4)
+    model.add_constraint("volume", equals=0.1 * 0.1 * 1.0, scaler=1e2)
+    sim = Simulator(model)
+    sim.run()
+    prob = OptimizationProblem(sim, "beam_thickness_opt")
+    t, res = synced(lambda: SLSQP(prob, ftol=1e-10, maxiter=200).solve())
+    err = float(np.abs(sim["thickness"] - OPENMDAO_THICK_REF).max())
+    print(f"W3 Hermite beam, nel=50, {d['V'].n_dofs} dofs, f64, {DEVICE}: "
+          f"SLSQP nit {res.nit}, {t:.3f} s; max |t - OpenMDAO| {err:.3e} "
+          f"(tol 1e-4); compliance {float(sim['compliance'])!r}")
+    if not err < 1e-4:
+        raise AssertionError("beam thickness differs from the OpenMDAO "
+                             "optimum")
+    return dict(seconds=t, nit=int(res.nit))
+
+
+
 def kernel_entry(key, name, source, replaces, launches, err, t):
     """One kernel's entry of the kernels line.  ms, plain_ms and
     library_ms are medians of CUDA-event timings of single calls; the
@@ -1321,11 +1914,15 @@ def main():
     t, err = timed_phase("kernels", seconds, phase_kernels, info1, dv0, iq0)
     launches, warm1 = timed_phase("refine1", seconds, phase_refine1, step1,
                                   dv0, iq0, info1)
-    t4, warm4 = timed_phase("refine4", seconds, phase_refine4, err)
+    t4, warm4, info4, dv4 = timed_phase("refine4", seconds, phase_refine4,
+                                        err)
     t_spmv, err_spmv, selftest = timed_phase("spmv", seconds, phase_spmv)
     w1_launches, _ = timed_phase("w1", seconds, phase_w1)
     timed_phase("w1_slsqp", seconds, phase_w1_slsqp)
     timed_phase("w1_card_vs_cpu", seconds, phase_w1_card_vs_cpu)
+    det = timed_phase("determinism", seconds, phase_determinism, info4,
+                      dv4)
+    del info4
     paths = {"refine1_oracle": launches}
     r4b = timed_phase("refine4_bench", seconds, phase_refine4_bench, warm4)
     paths["refine4_refactor3"] = r4b["launches"]
@@ -1340,9 +1937,24 @@ def main():
     paths["eager_model_block_thomas"] = eager["block_thomas"]["launches"]
     un = timed_phase("unstructured", seconds, phase_unstructured, err)
     paths["unstructured_refine1"] = un["launches"]
+    slice_c = {"determinism": det}
+    for name, fn, args in (("w1_weak", phase_w1_weak, (err,)),
+                           ("w2", phase_w2, ()),
+                           ("jit_step", phase_jit_step, ()),
+                           ("shape", phase_shape, ()),
+                           ("topopt", phase_topopt, ()),
+                           ("beam", phase_beam, ())):
+        slice_c[name] = timed_phase(name, seconds, fn, *args)
+    t_weak = slice_c["w1_weak"].pop("sweeps")
+    print("slice C summary: " + json.dumps(slice_c))
     print(f"kernels vs plain on the steps' factors (refine 1 and 4, "
-          f"unstructured): max |kernel - plain| K1 {err['K1']:.3e}, K2 "
-          f"{err['K2']:.3e}")
+          f"unstructured, W1 weak): max |kernel - plain| K1 "
+          f"{err['K1']:.3e}, K2 {err['K2']:.3e}")
+    # K4/K4T: max_abs_err over the nel=260 W1 operator and the Jacobians
+    # of W1 weak, W2 and W4
+    for k in ("K4", "K4T"):
+        err_spmv[k] = max([err_spmv[k]] + [slice_c[p]["err"][k] for p in
+                                           ("w1_weak", "w2", "topopt")])
     print("motor summary: " + json.dumps({
         "refine4_refactor3": r4b, "refine1": r1b, "lu_basis": lb,
         "eager_model": eager, "unstructured": un}))
@@ -1355,8 +1967,9 @@ def main():
                      device_ms=t[f"{k}_device"],
                      plain_device_ms=t[f"{k}_plain_device"],
                      library_device_ms=None, bound=t[f"{k}_bound"])),
-        shapes=[sweep_shape(k, ts) for ts in [t] + t4],
-        launches_by_path={p: n[k] for p, n in paths.items()})
+        shapes=[sweep_shape(k, ts) for ts in [t] + t4 + [t_weak]],
+        launches_by_path=dict({p: n[k] for p, n in paths.items()},
+                              w1_weak=slice_c["w1_weak"]["launches"][k]))
         for k, name, line in (("K1", "bt_fwd_sweep", 60),
                               ("K2", "bt_bwd_sweep", 76))]
     rows += [kernel_entry(k, name, sp, f"{ps}:{line}", n, err_spmv[k],
@@ -1366,6 +1979,12 @@ def main():
                  ("K4", "element_spmv", 121, w1_launches["K4"]),
                  ("K4T", "element_spmv transposed", 121, w1_launches["K4T"]),
                  ("K5", "banded_spmv", 217, selftest["K5"]))]
+    # K4/K4T: their top-level launches are W1's; launches_by_path adds the
+    # other paths that run them
+    for row, k in ((rows[3], "K4"), (rows[4], "K4T")):
+        row["launches_by_path"] = dict(
+            w1=w1_launches[k], **{p: slice_c[p]["launches"][k]
+                                  for p in ("w1_weak", "w2", "topopt")})
     # K5: its top-level numbers are the W1 stiffness band's; "bands" adds
     # the other nel=260 bands; bound_ms is on the band's nonzeros with x and
     # y, plan_bound_ms on what K5 reads (plan, x, y), dense_bound_ms on the

@@ -1,6 +1,6 @@
-"""Assembly engine: gather -> per-entity kernel -> index_add scatter
+"""Assembly engine: gather -> per-entity kernel -> owner-table scatter
 (port of femo_tpu/fea/assemble.py: cell terms, and interior- and
-exterior-facet terms on triangles).
+exterior-facet terms on intervals, triangles and quads).
 
 * Topology and tabulation are precomputed host-side in numpy and copied
   to the form's device once.
@@ -11,14 +11,19 @@ exterior-facet terms on triangles).
   respect to the test dofs.
 * Jacobians: `torch.func.jacfwd` of that residual -> per-entity dense
   blocks (ne, nr, nc) ("element-matrix" form).
-* The scatter is `index_add` (JAX: `jax.ops.segment_sum`).
+* The scatters (the residual vector, the Jacobian's diagonal and dense
+  form) sum through owner tables (ops/scatter.py) in a fixed order,
+  with no atomics.
+* Hermite elements: Hessian tables (the affine physical Hessian
+  K^T d2N K on cell terms, `hess(u)`) and the per-cell scaling of their
+  derivative dofs.
 * `ElementMatrix.matvec/rmatvec` run the element SpMV kernels K4/K4T on
   CUDA tensors (ops/spmv.py); each term keeps the kernels' row-owner
   maps of its pattern, built at first use.
 
-Not ported (raise NotImplementedError): Hessian tables (Hermite
-elements), manifold cells, facet terms of other cells than triangles, and
-the chunked entity loop.
+Not ported (raise NotImplementedError): manifold cells, facet terms of
+3D cells (tets, and the hex facets' dihedral variants), and the chunked
+entity loop.
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ from ..elements.element import (
 )
 from ..elements.quadrature import cell_rule
 from ..mesh.mesh import Mesh
+from ..ops.scatter import OwnerTable
 from ..ops.spmv import ElementSpMVPlan, element_matvec
-from .forms import FormDef, Integral, Q, QR
+from .forms import FormDef, Integral, Q, QR, integrand_device
 from .space import FunctionSpace
 
 
@@ -105,16 +111,19 @@ def _inv_small(G, detG=None):
 @dataclass
 class _SpaceTab:
     """Tabulation tables for one space on one term's quadrature points:
-    cell terms N (nq, nsd), dN (nq, nsd, tdim); facet terms stacked over
+    cell terms N (nq, nsd), dN (nq, nsd, tdim) and, for elements with
+    Hessian tables, d2N (nq, nsd, tdim, tdim); facet terms stacked over
     the facet-parametrization variants, (nvar, nq, nsd[, tdim])."""
 
     space: FunctionSpace
     N: torch.Tensor
     dN: torch.Tensor
+    d2N: torch.Tensor | None = None
 
 
 class _Term:
-    """One compiled integral term (cell or interior facet, triangles)."""
+    """One compiled integral term: cells, or the interior or exterior
+    facets of an interval, triangle or quad mesh."""
 
     def __init__(self, integral: Integral, form: "CompiledForm"):
         self.integral = integral
@@ -125,9 +134,6 @@ class _Term:
         spaces = form.spaces  # name -> FunctionSpace (test as "__test__")
         if mesh.tdim != mesh.gdim:
             raise NotImplementedError("manifold cells are not ported")
-        for V in spaces.values():
-            if V.element.has_hessian_tab():
-                raise NotImplementedError("Hessian tables are not ported")
 
         qdeg = integral.qdeg or form.default_qdeg
         geo = geometry_element(mesh.cell_type)
@@ -146,7 +152,9 @@ class _Term:
             self.tabs = {}
             for name, V in spaces.items():
                 N, dN = V.element.tabulate(qp)
-                self.tabs[name] = _SpaceTab(V, tf(N), tf(dN))
+                d2N = (tf(V.element.tabulate2(qp))
+                       if V.element.has_hessian_tab() else None)
+                self.tabs[name] = _SpaceTab(V, tf(N), tf(dN), d2N)
             Ng, dNg = geo.tabulate(qp)
             self.Ng, self.dNg = tf(Ng), tf(dNg)
             if integral.tag is None:
@@ -157,6 +165,7 @@ class _Term:
                 sel = np.isin(mesh.cell_tags, np.atleast_1d(integral.tag))
                 ents = np.nonzero(sel)[0].astype(np.int32)
             self.n_ent = len(ents)
+            self.cells0 = ents
             self.coords0 = tf(mesh.coords[mesh.cells[ents]])
             self.h = tf(mesh.cell_sizes()[ents])
             tags = (mesh.cell_tags[ents] if mesh.cell_tags is not None
@@ -168,13 +177,18 @@ class _Term:
 
         if self.domain not in ("interior_facet", "exterior_facet"):
             raise ValueError(f"unknown integral domain {self.domain!r}")
-        if mesh.cell_type != "triangle":
+        if mesh.cell_type not in ("interval", "triangle", "quad"):
             raise NotImplementedError(
-                "facet terms are ported for triangles only")
-        fqp, fqw = cell_rule("interval", qdeg)
+                "facet terms are ported for intervals, triangles and quads")
+        point = mesh.tdim == 1
+        if point:  # the facets of an interval are its end points
+            fqp, fqw = np.zeros((1, 0)), np.ones(1)
+        else:
+            fqp, fqw = cell_rule("interval", qdeg)
         self.qw = tf(fqw)
-        # variants: every edge of the reference triangle in both
-        # orientations, so the two sides of an interior facet integrate at
+        # variants: every facet of the reference cell in both orientations
+        # (an edge's two directions; a point twice, to keep lf * 2 + orient
+        # indexing), so the two sides of an interior facet integrate at
         # matching physical points; each is an affine map pts = o + fqp @ T,
         # and T doubles as the reference tangent frame for the normal
         rv = REFERENCE_VERTICES[mesh.cell_type]
@@ -182,8 +196,11 @@ class _Term:
         vmaps = []
         for lf in range(len(lfs_t)):
             verts = rv[list(lfs_t[lf])]
-            vmaps.append((verts[0], (verts[1] - verts[0])[None]))
-            vmaps.append((verts[1], (verts[0] - verts[1])[None]))
+            if point:
+                vmaps += [(verts[0], np.zeros((0, 1)))] * 2
+            else:
+                vmaps.append((verts[0], (verts[1] - verts[0])[None]))
+                vmaps.append((verts[1], (verts[0] - verts[1])[None]))
         variants = [o[None, :] + fqp @ T for (o, T) in vmaps]
         self.Tref = tf(np.stack([T for (_, T) in vmaps]))
 
@@ -214,6 +231,8 @@ class _Term:
             # sorted facet key?
             local_first = mesh.cells[cells, lfs[lf, 0]]
             orient = (local_first != fverts[:, 0]).astype(np.int32)
+            if point:
+                orient[:] = 0
             return cells.astype(np.int32), lf * 2 + orient
 
         ct = mesh.cell_tags
@@ -253,21 +272,44 @@ class _Term:
         return x, detJ, K, J
 
     @staticmethod
-    def _qp_values(tab: _SpaceTab, N, dNphys, u_e):
-        """(val, grad) at all qps. N (nq,nsd), dNphys (nq,nsd,gdim)."""
+    def _qp_values(tab: _SpaceTab, N, dNphys, u_e, d2phys=None):
+        """(val, grad[, hess]) at all qps. N (nq,nsd), dNphys
+        (nq,nsd,gdim), d2phys (nq,nsd,gdim,gdim) or None."""
         el = tab.space.element
         nsd, ncp = el.nscalar_dofs, el.ncomp
         if ncp == 1:
-            return N @ u_e, torch.einsum("qsg,s->qg", dNphys, u_e)
+            out = (N @ u_e, torch.einsum("qsg,s->qg", dNphys, u_e))
+            if d2phys is not None:
+                out += (torch.einsum("qsij,s->qij", d2phys, u_e),)
+            return out
         um = u_e.reshape(nsd, ncp)
-        return (torch.einsum("qs,sc->qc", N, um),
-                torch.einsum("qsg,sc->qcg", dNphys, um))
+        out = (torch.einsum("qs,sc->qc", N, um),
+               torch.einsum("qsg,sc->qcg", dNphys, um))
+        if d2phys is not None:
+            out += (torch.einsum("qsij,sc->qcij", d2phys, um),)
+        return out
+
+    @staticmethod
+    def _scale_local(V: FunctionSpace, coords_e, u_e):
+        """Per-cell dof scaling (Hermite derivative dofs scale by h)."""
+        el = V.element
+        if not el.has_dof_scaling():
+            return u_e
+        s = el.dof_scaling_scalar(coords_e)
+        if el.ncomp > 1:
+            s = torch.repeat_interleave(s, el.ncomp)
+        return u_e * s
 
     @staticmethod
     def _facet_geom(J, Tv, x, cent0):
-        """Per-qp outward unit normal (nq, 2) and edge measure (nq,) of a
-        triangle edge: tangent t = J @ Tv^T, normal = rot(t) oriented away
-        from the side-0 cell centroid."""
+        """Per-qp outward unit normal (nq, gdim) and facet measure (nq,):
+        on an edge, tangent t = J @ Tv^T and normal = rot(t); on the point
+        facet of an interval, the unit vector from the cell centroid and
+        measure 1.  Oriented away from the side-0 cell centroid."""
+        if Tv.shape[0] == 0:
+            n = x - cent0[None, :]
+            n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
+            return n, torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
         t1 = torch.einsum("qit,ft->qif", J, Tv)[:, :, 0]
         a = torch.linalg.norm(t1, dim=-1)
         n = torch.stack([t1[:, 1], -t1[:, 0]], dim=-1) / a[:, None]
@@ -292,32 +334,50 @@ class _Term:
         keys = names + (["v"] if test_name else [])
         tabs = self.tabs
         all_names = set(names) | ({test_name} if test_name else set())
+        scale = self._scale_local
+
+        def side_values(locals_, v_e, coords_e, N_of, dNphys, d2phys=None):
+            """{name: (val, grad[, hess]) at all qps} of one cell side."""
+            d2phys = d2phys or {}
+            qv = {n: self._qp_values(
+                tabs[n], N_of(n), dNphys[n],
+                scale(tabs[n].space, coords_e, locals_[n]), d2phys.get(n))
+                for n in names}
+            if test_name:
+                tt = tabs[test_name]
+                qv["v"] = self._qp_values(
+                    tt, N_of(test_name), dNphys[test_name],
+                    scale(tt.space, coords_e, v_e), d2phys.get(test_name))
+            return qv
+
+        def w_of(qv, gvals):
+            return SimpleNamespace(**{n: Q(*qv[n]) for n in keys},
+                                   **{n: Q(gvals[n]) for n in gnames})
+
+        def value(r):
+            return r.val if isinstance(r, Q) else r
 
         if self.domain == "cell":
             def kernel(locals_, coords_e, h_e, tag_e):
                 x, detJ, K, _ = self._geometry(coords_e, self.Ng, self.dNg)
                 dNphys = {n: torch.einsum("qst,qtg->qsg", tabs[n].dN, K)
                           for n in all_names}
+                # physical Hessian on affine cells: K^T d2N K (no
+                # curvature term; Hermite interval elements)
+                d2phys = {n: torch.einsum("qti,qstr,qrj->qsij", K,
+                                          tabs[n].d2N, K)
+                          for n in all_names if tabs[n].d2N is not None}
 
                 def total(v_e):
-                    qvals = {n: self._qp_values(tabs[n], tabs[n].N,
-                                                dNphys[n], locals_[n])
-                             for n in names}
-                    if test_name:
-                        qvals["v"] = self._qp_values(
-                            tabs[test_name], tabs[test_name].N,
-                            dNphys[test_name], v_e)
+                    qv = side_values(locals_, v_e, coords_e,
+                                     lambda n: tabs[n].N, dNphys, d2phys)
 
                     def at_qp(qv, x_q):
-                        w = SimpleNamespace(
-                            **{n: Q(*qv[n]) for n in keys},
-                            **{n: Q(locals_[n]) for n in gnames})
                         g = SimpleNamespace(x=x_q, h=h_e, tag=tag_e,
                                             ctag=tag_e, n=None)
-                        r = integral.fn(w, g)
-                        return r.val if isinstance(r, Q) else r
+                        return value(integral.fn(w_of(qv, locals_), g))
 
-                    vals = vmap(at_qp)(qvals, x)
+                    vals = vmap(at_qp)(qv, x)
                     return torch.sum(self.qw * detJ * vals)
 
                 if test_name is None:
@@ -331,32 +391,23 @@ class _Term:
                        ctag_e):
                 x, _, K, Jg = self._geometry(
                     coords_e, self.Ng[var_e], self.dNg[var_e])
-                nrm, scale = self._facet_geom(Jg, self.Tref[var_e], x,
-                                              cent_e)
+                nrm, meas = self._facet_geom(Jg, self.Tref[var_e], x,
+                                             cent_e)
                 dNphys = {n: torch.einsum("qst,qtg->qsg",
                                           tabs[n].dN[var_e], K)
                           for n in all_names}
 
                 def total(v_e):
-                    qvals = {n: self._qp_values(tabs[n], tabs[n].N[var_e],
-                                                dNphys[n], locals_[n])
-                             for n in names}
-                    if test_name:
-                        tt = tabs[test_name]
-                        qvals["v"] = self._qp_values(
-                            tt, tt.N[var_e], dNphys[test_name], v_e)
+                    qv = side_values(locals_, v_e, coords_e,
+                                     lambda n: tabs[n].N[var_e], dNphys)
 
                     def at_qp(qv, x_q, n_q):
-                        w = SimpleNamespace(
-                            **{n: Q(*qv[n]) for n in keys},
-                            **{n: Q(locals_[n]) for n in gnames})
                         g = SimpleNamespace(x=x_q, h=h_e, tag=tag_e,
                                             ctag=ctag_e, n=n_q)
-                        r = integral.fn(w, g)
-                        return r.val if isinstance(r, Q) else r
+                        return value(integral.fn(w_of(qv, locals_), g))
 
-                    vals = vmap(at_qp)(qvals, x, nrm)
-                    return torch.sum(self.qw * scale * vals)
+                    vals = vmap(at_qp)(qv, x, nrm)
+                    return torch.sum(self.qw * meas * vals)
 
                 if test_name is None:
                     return total(None)
@@ -370,25 +421,20 @@ class _Term:
                 coords0_e, self.Ng[var0_e], self.dNg[var0_e])
             _, _, K1, _ = self._geometry(
                 coords1_e, self.Ng[var1_e], self.dNg[var1_e])
-            nrm, scale = self._facet_geom(Jg0, self.Tref[var0_e], x, cent_e)
+            nrm, meas = self._facet_geom(Jg0, self.Tref[var0_e], x, cent_e)
             dN0 = {n: torch.einsum("qst,qtg->qsg", tabs[n].dN[var0_e], K0)
                    for n in all_names}
             dN1 = {n: torch.einsum("qst,qtg->qsg", tabs[n].dN[var1_e], K1)
                    for n in all_names}
 
             def total(v2):
-                qv0 = {n: self._qp_values(tabs[n], tabs[n].N[var0_e],
-                                          dN0[n], locals2[n][0])
-                       for n in names}
-                qv1 = {n: self._qp_values(tabs[n], tabs[n].N[var1_e],
-                                          dN1[n], locals2[n][1])
-                       for n in names}
-                if test_name:
-                    tt = tabs[test_name]
-                    qv0["v"] = self._qp_values(tt, tt.N[var0_e],
-                                               dN0[test_name], v2[0])
-                    qv1["v"] = self._qp_values(tt, tt.N[var1_e],
-                                               dN1[test_name], v2[1])
+                side = [{n: locals2[n][k] for n in names} for k in (0, 1)]
+                qv0 = side_values(side[0], None if v2 is None else v2[0],
+                                  coords0_e, lambda n: tabs[n].N[var0_e],
+                                  dN0)
+                qv1 = side_values(side[1], None if v2 is None else v2[1],
+                                  coords1_e, lambda n: tabs[n].N[var1_e],
+                                  dN1)
 
                 def at_qp(q0, q1, x_q, n_q):
                     w = SimpleNamespace(
@@ -396,11 +442,10 @@ class _Term:
                         **{n: Q(locals2[n]) for n in gnames})
                     g = SimpleNamespace(x=x_q, h=h_e, tag=tag_e,
                                         ctag0=ctag0_e, ctag1=ctag1_e, n=n_q)
-                    r = integral.fn(w, g)
-                    return r.val if isinstance(r, Q) else r
+                    return value(integral.fn(w, g))
 
                 vals = vmap(at_qp)(qv0, qv1, x, nrm)
-                return torch.sum(self.qw * scale * vals)
+                return torch.sum(self.qw * meas * vals)
 
             if test_name is None:
                 return total(None)
@@ -430,14 +475,17 @@ class _Term:
         return {n: (values[n] if n in g else values[n][self.gdofs0[n]])
                 for n in values}
 
-    def _vmapped(self, fn, values):
+    def _vmapped(self, fn, values, args=None):
         """vmap fn(locals, *entity args) over the entities: fields map
-        over dim 0, globals broadcast."""
+        over dim 0, globals broadcast.  args: the entity data, by default
+        the term's own (`_entity_args`); shape derivatives pass data made
+        from traced coordinates."""
         in_locals = {n: (None if n in self.form.global_names else 0)
                      for n in values}
-        args = self._entity_args()
-        return vmap(fn, in_dims=(in_locals,) + (0,) * len(args))(
-            self.gather_locals(values), *args)
+        args = self._entity_args() if args is None else args
+        with integrand_device(self.form.device):
+            return vmap(fn, in_dims=(in_locals,) + (0,) * len(args))(
+                self.gather_locals(values), *args)
 
     def _rows(self, name):
         if self.domain == "interior_facet":
@@ -455,18 +503,25 @@ class _Term:
                 self.tabs[test_name].space.n_dofs, self.tabs[wrt].space.n_dofs)
         return self._spmv_plans[key]
 
-    def scalar(self, values: dict) -> torch.Tensor:
+    def scalar(self, values: dict, args=None) -> torch.Tensor:
         kern = self.make_entity_kernel(None, list(values))
-        return torch.sum(self._vmapped(kern, values))
+        return torch.sum(self._vmapped(kern, values, args))
+
+    def host_rows(self, name):
+        """The host (ne, nd) dof ids of `name` per entity ((ne, 2 nd) on
+        interior facets), in the order of residual_contrib's values."""
+        if self.domain == "interior_facet":
+            return np.concatenate([self.dofs0[name], self.dofs1[name]],
+                                  axis=1)
+        return self.dofs0[name]
 
     def residual_contrib(self, values: dict, test_name: str,
                          chunk: int | None = None):
-        """(flat contributions, flat row ids) for the index_add scatter."""
+        """Flat contributions, in the order of host_rows(test_name)."""
         if chunk is not None:
             raise NotImplementedError("chunked assembly is not ported")
         kern = self.make_entity_kernel(test_name, list(values))
-        contrib = self._vmapped(kern, values)  # (ne, nd) | (ne, 2, nd)
-        return contrib.reshape(-1), self._rows(test_name).reshape(-1)
+        return self._vmapped(kern, values).reshape(-1)
 
     def matrix_blocks(self, values: dict, test_name: str, wrt: str,
                       chunk: int | None = None):
@@ -494,6 +549,11 @@ class _Term:
 # ---------------------------------------------------------------------------
 
 
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
 @dataclass
 class MatBlock:
     A: object  # (ne, nr, nc) tensor, or a host placeholder for patterns
@@ -509,9 +569,13 @@ class ElementMatrix:
     K4T (rmatvec) launch per block on CUDA tensors, the plain PyTorch
     version on CPU tensors (ops/spmv.py)."""
 
-    def __init__(self, blocks: list[MatBlock], n_rows: int, n_cols: int):
+    def __init__(self, blocks: list[MatBlock], n_rows: int, n_cols: int,
+                 cache: dict | None = None):
         self.blocks = blocks
         self.shape = (n_rows, n_cols)
+        # owner tables of `diagonal` and `to_dense`, shared by every matrix
+        # a compiled form assembles from one pattern
+        self._cache = {} if cache is None else cache
         for b in blocks:
             if b.plan is None and isinstance(b.rows, torch.Tensor):
                 b.plan = ElementSpMVPlan(b.rows, b.cols, n_rows, n_cols)
@@ -524,44 +588,52 @@ class ElementMatrix:
         return element_matvec(self.blocks, y, self.shape, transpose=True)
 
     def diagonal(self):
-        A0 = self.blocks[0].A
-        d = torch.zeros(self.shape[0], dtype=A0.dtype, device=A0.device)
-        for b in self.blocks:
-            if b.rows.shape[1] != b.cols.shape[1]:
-                continue
-            diag = torch.diagonal(b.A, dim1=1, dim2=2)
-            same = b.rows == b.cols
-            d = d.index_add(0, b.rows.reshape(-1),
-                            (diag * same).reshape(-1))
-        return d
+        """The diagonal, summed through an owner table (ops/scatter.py)
+        built at the first call and kept in the matrix's cache."""
+        blocks = [b for b in self.blocks
+                  if b.rows.shape[1] == b.cols.shape[1]]
+        tab = self._cache.get("diagonal")
+        if tab is None:
+            tab = self._cache["diagonal"] = OwnerTable(
+                np.concatenate([_host(b.rows).reshape(-1) for b in blocks]),
+                sum(b.rows.numel() for b in blocks), self.shape[0],
+                device=blocks[0].A.device)
+        return tab.sum(torch.cat([
+            (torch.diagonal(b.A, dim1=1, dim2=2)
+             * (b.rows == b.cols)).reshape(-1) for b in blocks]))
 
     def to_dense(self):
-        A0 = self.blocks[0].A
-        M = torch.zeros(self.shape, dtype=A0.dtype, device=A0.device)
-        for b in self.blocks:
-            ne, nr, nc = b.A.shape
-            ridx = b.rows[:, :, None].expand(ne, nr, nc).reshape(-1)
-            cidx = b.cols[:, None, :].expand(ne, nr, nc).reshape(-1)
-            M = M.index_put((ridx, cidx), b.A.reshape(-1), accumulate=True)
-        return M
+        """The dense matrix, summed through an owner table of the
+        flattened (row, col) destinations, built at the first call and
+        kept in the matrix's cache."""
+        n_rows, n_cols = self.shape
+        tab = self._cache.get("dense")
+        if tab is None:
+            dest = [(_host(b.rows).astype(np.int64)[:, :, None] * n_cols
+                     + _host(b.cols)[:, None, :]).reshape(-1)
+                    for b in self.blocks]
+            dest = np.concatenate(dest)
+            tab = self._cache["dense"] = OwnerTable(
+                dest, len(dest), device=self.blocks[0].A.device)
+        vals = torch.cat([b.A.reshape(-1) for b in self.blocks])
+        M = torch.zeros(n_rows * n_cols, dtype=vals.dtype,
+                        device=vals.device)
+        M[tab.ids] = tab.sum(vals)
+        return M.reshape(n_rows, n_cols)
 
     def to_scipy_csr(self):
         """Host CSR, built as the JAX package builds it (the same COO
         order, so scipy sums duplicates in the same order)."""
         import scipy.sparse as sp
 
-        def host(a):
-            return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
-                else np.asarray(a)
-
         rows, cols, vals = [], [], []
         for b in self.blocks:
             ne, nr, nc = b.A.shape
             rows.append(np.broadcast_to(
-                host(b.rows)[:, :, None], (ne, nr, nc)).ravel())
+                _host(b.rows)[:, :, None], (ne, nr, nc)).ravel())
             cols.append(np.broadcast_to(
-                host(b.cols)[:, None, :], (ne, nr, nc)).ravel())
-            vals.append(host(b.A).ravel())
+                _host(b.cols)[:, None, :], (ne, nr, nc)).ravel())
+            vals.append(_host(b.A).ravel())
         M = sp.coo_matrix(
             (np.concatenate(vals), (np.concatenate(rows),
                                     np.concatenate(cols))), shape=self.shape)
@@ -593,9 +665,14 @@ class CompiledForm:
         self.mesh: Mesh = next(iter(spaces.values())).mesh
         self.default_qdeg = max(
             max((V.element.degree * 2) for V in spaces.values()), 2)
+        if any(V.element.family == "Hermite" for V in spaces.values()):
+            self.default_qdeg = max(self.default_qdeg, 6)
         self.terms = [_Term(i, self) for i in form.integrals]
         self.coeff_names = list(form.coeffs.keys())
         self.all_names = self.coeff_names + self.global_names
+        # owner tables (ops/scatter.py), built at first use
+        self._vector_table = None
+        self._matrix_tables: dict = {}
 
     def scalar(self, values: dict) -> torch.Tensor:
         vals = {n: values[n] for n in self.all_names}
@@ -604,13 +681,14 @@ class CompiledForm:
     def vector(self, values: dict) -> torch.Tensor:
         if self.form.test is None:
             raise ValueError("vector assembly needs a test space")
-        n = self.form.test.n_dofs
         vals = {k: values[k] for k in self.all_names}
-        out = torch.zeros(n, dtype=config.dtype, device=self.device)
-        for t in self.terms:
-            contrib, rows = t.residual_contrib(vals, "__test__")
-            out = out.index_add(0, rows, contrib)
-        return out
+        if self._vector_table is None:
+            rows = np.concatenate(
+                [t.host_rows("__test__").reshape(-1) for t in self.terms])
+            self._vector_table = OwnerTable(
+                rows, len(rows), self.form.test.n_dofs, device=self.device)
+        return self._vector_table.sum(torch.cat(
+            [t.residual_contrib(vals, "__test__") for t in self.terms]))
 
     def matrix(self, values: dict, wrt: str) -> ElementMatrix:
         if self.form.test is None:
@@ -620,7 +698,8 @@ class CompiledForm:
                            plan=t.spmv_plan("__test__", wrt))
                   for t in self.terms]
         ncols = self.form.coeffs[wrt].space.n_dofs
-        return ElementMatrix(blocks, self.form.test.n_dofs, ncols)
+        return ElementMatrix(blocks, self.form.test.n_dofs, ncols,
+                             cache=self._matrix_tables.setdefault(wrt, {}))
 
     def matrix_pattern(self, wrt: str) -> ElementMatrix:
         """Pattern-only ElementMatrix: host rows/cols from the dofmaps and

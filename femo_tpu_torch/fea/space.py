@@ -3,9 +3,11 @@
 A FunctionSpace is an Element + a host-built numpy dofmap (cell -> global
 dof indices) + scalar-dof coordinates, plus the device that its Functions
 and compiled forms live on.  A Function is a named handle around a flat
-dof tensor.  The port covers degree-1 Lagrange spaces (the motor's and
-W1's CG1, scalar and ncomp=2) and the cell-wise DG spaces (W1's DG0
-control).
+dof tensor.  The port covers vertex-dof spaces: degree-1 Lagrange (the
+motor's and W1's CG1, scalar and ncomp=2) and the cubic Hermite interval
+element (W3's beam: a value and a derivative dof per vertex, the
+derivative dof at its vertex's coordinates), and the cell-wise DG spaces
+(W1's DG0 control).
 """
 
 from __future__ import annotations
@@ -17,11 +19,13 @@ from ..config import config, get_device
 from ..elements.element import Element
 from ..mesh.mesh import Mesh
 
-_FAMILY_ALIASES = {"CG": "P", "Lagrange": "P", "P": "P", "DG": "DG"}
+_FAMILY_ALIASES = {"CG": "P", "Lagrange": "P", "P": "P", "DG": "DG",
+                   "Hermite": "Hermite"}
 
 
 class FunctionSpace:
-    """A Lagrange or DG finite element space over a mesh, on one device.
+    """A Lagrange, Hermite or DG finite element space over a mesh, on one
+    device.
 
     Parameters
     ----------
@@ -41,14 +45,14 @@ class FunctionSpace:
             family, degree = spec
             if family not in _FAMILY_ALIASES:
                 raise NotImplementedError(
-                    f"family {family!r}: the port has Lagrange and DG "
-                    "spaces only")
+                    f"family {family!r}: the port has Lagrange, Hermite "
+                    "and DG spaces only")
             self.element = Element(
                 mesh.cell_type, _FAMILY_ALIASES[family], int(degree), ncomp)
-        if self.element.family not in ("P", "DG"):
+        if self.element.family not in ("P", "DG", "Hermite"):
             raise NotImplementedError(
-                f"family {self.element.family!r}: the port has Lagrange "
-                "and DG spaces only")
+                f"family {self.element.family!r}: the port has Lagrange, "
+                "Hermite and DG spaces only")
         self._build_dofmap()
 
     # -- dofmap construction (host, numpy) ------------------------------------
@@ -68,12 +72,14 @@ class FunctionSpace:
         else:
             if any(per[1:]) or el.nscalar_dofs != per[0] * mesh.cells.shape[1]:
                 raise NotImplementedError(
-                    "the port builds vertex-only (degree-1) Lagrange dofmaps")
+                    "the port builds vertex-only dofmaps (degree-1 "
+                    "Lagrange, Hermite)")
             pv = per[0]
             vm = mesh.cells.astype(np.int64)  # (nc, nv)
             scalar_map = (vm[:, :, None] * pv
                           + np.arange(pv)[None, None, :]).reshape(nc, -1)
             n_scalar = mesh.n_nodes * pv
+            # Hermite derivative dofs (k = 1) share their vertex's coords
             coords = np.zeros((n_scalar, mesh.gdim))
             for k in range(pv):
                 coords[np.arange(mesh.n_nodes) * pv + k] = mesh.coords
@@ -89,6 +95,10 @@ class FunctionSpace:
         self.dofmap = dofmap.astype(np.int32)
         self.n_dofs = int(n_scalar * ncp)
         self.scalar_dof_coords = coords
+        # 0 point evaluation, 1 derivative (Hermite, k = 1 at each vertex)
+        self.scalar_dof_kind = np.zeros(n_scalar, np.int8)
+        if el.family == "Hermite":
+            self.scalar_dof_kind[1::2] = 1
 
     # -- public helpers --------------------------------------------------------
     @property
@@ -142,9 +152,10 @@ class Function:
     def set(self, val: float):
         self.array = self.space.new_array(val)
 
-    def interpolate(self, fn):
+    def interpolate(self, fn, deriv_fn=None):
         """Interpolate fn(x: (gdim, n)) -> values at the dof points (for
-        vector spaces fn returns (ncomp, n)); evaluated on the host."""
+        vector spaces fn returns (ncomp, n)); evaluated on the host.  For
+        Hermite spaces deriv_fn gives the derivative dofs (default 0)."""
         V = self.space
         vals = np.asarray(fn(V.scalar_dof_coords.T))
         arr = np.zeros(V.n_dofs)
@@ -153,6 +164,11 @@ class Function:
         else:
             for c in range(V.ncomp):
                 arr[c:: V.ncomp] = vals[c]
+        deriv = V.scalar_dof_kind == 1
+        if deriv.any():
+            dmask = np.repeat(deriv, V.ncomp)
+            arr[dmask] = (0.0 if deriv_fn is None else np.asarray(
+                deriv_fn(V.scalar_dof_coords.T))[deriv])
         self.array = torch.as_tensor(arr, dtype=config.dtype,
                                      device=V.device)
         return self

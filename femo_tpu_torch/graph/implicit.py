@@ -19,6 +19,10 @@ converged state plus a VJP of the residual with respect to the inputs.
   constrained Jacobian, its factors kept for the transpose adjoint solve
   (the port of `implicit_solve_dense_jit`).
 
+* `implicit_solve_jit(...)` — matrix-free Newton-Krylov forward
+  (`newton_solve_jit`), CG or BiCGStab transpose adjoint whose matvec is
+  a `torch.func.vjp` of the constrained residual at the solution.
+
 * `implicit_solve_bt(...)` — fixed-count Newton through the
   block-tridiagonal template and the block-Thomas factor, with Shamanskii
   factor reuse (`refactor_every`, `freeze_operator`) and Jacobi scaling
@@ -39,7 +43,8 @@ from ..fea.assemble import CompiledForm, ElementMatrix
 from ..fea.bc import apply_bc, constrain_residual
 from ..ops.block_tridiag import BlockThomasFactor, pcg_fixed
 from ..solvers.linear import LinearSolver
-from ..solvers.newton import newton_solve
+from ..solvers.krylov import bicgstab, cg
+from ..solvers.newton import newton_solve, newton_solve_jit
 
 
 class ImplicitSolveOp:
@@ -248,6 +253,45 @@ def implicit_solve_dense(residual_fn: Callable, jac_dense_fn: Callable,
 
     def backward(u, inputs, fac, ubar):
         psi = torch.where(free, fsolve(fac, ubar, transpose=True), 0.0)
+        return _vjp_inputs(residual_fn, u, inputs, psi)
+
+    return _ift_solve(forward, backward)
+
+
+def implicit_solve_jit(residual_fn: Callable, free, bc_values,
+                       newton_opts: dict | None = None):
+    """Differentiable matrix-free solve of residual_fn(u, inputs) = 0:
+    `newton_solve_jit` forward; the adjoint solves J^T psi = ubar with CG
+    (or BiCGStab, newton_opts["krylov"]) whose matvec is the VJP of the
+    constrained residual at u.  newton_opts: newton_solve_jit's options,
+    with "krylov", "krylov_rtol" (default 1e-10) and "krylov_maxiter"
+    (2000) shared by both passes.  Returns solve(inputs, u0) -> u."""
+    opts = dict(newton_opts or {})
+    kr = opts.pop("krylov", "cg")
+    krylov_rtol = opts.pop("krylov_rtol", 1e-10)
+    krylov_maxiter = opts.pop("krylov_maxiter", 2000)
+    solver = cg if kr == "cg" else bicgstab
+
+    def forward(inputs, u0):
+        u, _, _ = newton_solve_jit(
+            lambda uu: residual_fn(uu, inputs), u0, free, bc_values,
+            krylov=kr, krylov_rtol=krylov_rtol,
+            krylov_maxiter=krylov_maxiter, **opts)
+        return u, None
+
+    def backward(u, inputs, _, ubar):
+        def Rc(uu):
+            return constrain_residual(residual_fn(uu, inputs), uu, free,
+                                      bc_values)
+
+        _, vjp_u = vjp(Rc, u)
+
+        def jtv(w):
+            (Jtw,) = vjp_u(torch.where(free, w, 0.0))
+            return torch.where(free, Jtw, w)
+
+        r = solver(jtv, ubar, rtol=krylov_rtol, maxiter=krylov_maxiter)
+        psi = torch.where(free, r.x, 0.0)
         return _vjp_inputs(residual_fn, u, inputs, psi)
 
     return _ift_solve(forward, backward)

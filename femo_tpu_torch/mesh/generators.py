@@ -1,7 +1,7 @@
-"""Structured mesh generators: the triangle/quad rectangle and the unit
-square.
+"""Structured mesh generators: the interval, the triangle/quad rectangle
+and the unit square.
 
-A copy of those two functions of femo_tpu/mesh/generators.py (numpy
+A copy of those three functions of femo_tpu/mesh/generators.py (numpy
 only), kept beside the port because importing anything under femo_tpu
 imports jax.  The node and cell numbering must stay identical to the JAX
 package's, so both packages assemble the same systems.
@@ -12,6 +12,12 @@ from __future__ import annotations
 import numpy as np
 
 from .mesh import Mesh
+
+
+def create_interval_mesh(n: int, a: float = 0.0, b: float = 1.0) -> Mesh:
+    x = np.linspace(a, b, n + 1)[:, None]
+    cells = np.stack([np.arange(n), np.arange(1, n + 1)], axis=1)
+    return Mesh(x, cells, "interval")
 
 
 def create_rectangle_mesh(

@@ -1,12 +1,13 @@
-"""ctypes bindings to the JAX package's C++ host helpers.
+"""ctypes bindings to the C++ host helpers (RCM order, CSR pattern,
+block-tridiagonal destination map).
 
-Builds femo_tpu/native/femo_native.cpp — the same source file, read from the
-JAX package's tree but never imported through it — with
-`g++ -O3 -shared -fPIC` into the port's build directory at first use, and
-binds the four helpers the block-tridiagonal template needs.  Sharing the
-source is what makes the RCM order, and with it the whole block layout,
-identical in both packages, so there is deliberately no numpy fallback:
-a failed build raises.
+Builds femo_tpu_torch/csrc/femo_native.cpp, a byte-for-byte copy of the
+JAX package's femo_tpu/native/femo_native.cpp (a test keeps the two
+alike), with `g++ -O3 -shared -fPIC` into the port's build directory at
+first use, and binds the helpers the block-tridiagonal template needs.
+The shared source is what makes the RCM order, and with it the whole
+block layout, identical in both packages, so there is deliberately no
+numpy fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import subprocess
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_REPO, "femo_tpu", "native", "femo_native.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_HERE, "csrc", "femo_native.cpp")
+BUILD_DIR = os.path.join(_HERE, "_build")
 
 _lib = None
 

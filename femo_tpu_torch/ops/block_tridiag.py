@@ -34,6 +34,7 @@ import torch
 
 from ..config import get_device
 from .bt_sweeps import bt_sweep_solve
+from .scatter import OwnerTable
 
 
 def _round_up(x, m):
@@ -208,7 +209,7 @@ class BlockTridiagTemplate:
     """Symbolic/numeric split: RCM ordering, block layout and the
     element-entry -> (D|L|U, block, i, j) destination map are computed
     once host-side from a pattern ElementMatrix; `fill` is then one
-    index_add per Newton iteration."""
+    fixed-order gather and sum per Newton iteration."""
 
     def __init__(self, emat, free=None, block: int | None = None,
                  device=None):
@@ -246,9 +247,6 @@ class BlockTridiagTemplate:
             native.bt_dest_map(r, c, iperm, self.free, B, nb, dump)
             for r, c in pattern])
         self.dest = torch.as_tensor(dest, device=device)
-        keep = np.nonzero(dest != dump)[0]
-        self._keep = torch.as_tensor(keep, device=device)
-        self._keep_dest = torch.as_tensor(dest[keep], device=device)
 
         # identity on fixed dofs and on the padding rows
         diag_ids = []
@@ -257,19 +255,30 @@ class BlockTridiagTemplate:
             diag_ids.append(((0 * nb + pf // B) * B + pf % B) * B + pf % B)
         pad = np.arange(n, n_pad)
         diag_ids.append(((0 * nb + pad // B) * B + pad % B) * B + pad % B)
-        self.diag_ids = torch.as_tensor(np.concatenate(diag_ids),
-                                        device=device)
+        diag_ids = np.concatenate(diag_ids)
+        self.diag_ids = torch.as_tensor(diag_ids, device=device)
         self.perm_full = np.concatenate([perm.astype(np.int64),
                                          np.arange(n, n_pad)])
 
+        # owner table of the fill: the source is the flat element values
+        # followed by one 1 per identity entry
+        keep = np.nonzero(dest != dump)[0]
+        n_vals = len(dest)
+        self._fill_table = OwnerTable(
+            np.concatenate([dest[keep], diag_ids]),
+            n_vals + len(diag_ids),
+            src=np.concatenate([keep, n_vals + np.arange(len(diag_ids))]),
+            device=device)
+
     def fill(self, emat_blocks):
-        """Element blocks [(A, rows, cols), ...] -> (D, L, U)."""
+        """Element blocks [(A, rows, cols), ...] -> (D, L, U), summed
+        through the template's owner table (ops/scatter.py)."""
         vals = torch.cat([A.reshape(-1) for A, _, _ in emat_blocks])
+        tab = self._fill_table
+        src = torch.cat([vals, vals.new_ones(tab.n_src - len(vals))])
         acc = torch.zeros(self.dest_size - 1, dtype=vals.dtype,
                           device=vals.device)
-        acc.index_add_(0, self._keep_dest, vals[self._keep])
-        acc.index_add_(0, self.diag_ids, torch.ones_like(
-            self.diag_ids, dtype=vals.dtype))
+        acc[tab.ids] = tab.sum(src)
         T = acc.reshape(3, self.nb, self.B, self.B)
         return T[0], T[1], T[2]
 

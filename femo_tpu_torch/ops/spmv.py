@@ -41,6 +41,7 @@ import torch
 
 from ..native import build_shared
 from .bt_sweeps import NVCC_FLAGS, _nvcc
+from .scatter import owner_csr
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "spmv.cu")
@@ -116,15 +117,11 @@ def _launch(kernel: str, fn_name: str, dtype, *args):
 def _owner_map(ids: np.ndarray, n: int, device):
     """CSR of the element slots (e * k + j of ids (ne, k)) owned by each
     of n output rows, in increasing slot (element) order: (ptr (n+1,),
-    slot (ne*k,)) int32 on device."""
-    flat = ids.reshape(-1)
-    if flat.size and (flat.min() < 0 or flat.max() >= n):
-        raise ValueError(f"element dof ids outside [0, {n})")
-    if flat.size > _I32_MAX or n > _I32_MAX:
+    slot (ne*k,)) int32 on device (the assembly's owner tables,
+    ops/scatter.py, come from the same `owner_csr`)."""
+    if ids.size > _I32_MAX or n > _I32_MAX:
         raise ValueError("element pattern too large for int32 slot maps")
-    slot = np.argsort(flat, kind="stable")
-    ptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(flat, minlength=n), out=ptr[1:])
+    ptr, slot = owner_csr(ids, n)
     return (torch.as_tensor(ptr.astype(np.int32), device=device),
             torch.as_tensor(slot.astype(np.int32), device=device))
 

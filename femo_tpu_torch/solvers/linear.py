@@ -70,6 +70,7 @@ class DenseFactorization(Factorization):
 class KrylovFactorization(Factorization):
     def __init__(self, emat: ElementMatrix, free: torch.Tensor, method: str,
                  pc: str | None, rtol, atol, maxiter):
+        self.emat = emat
         self.mv = constrained_matvec(emat.matvec, free)
         self.mvt = constrained_matvec(emat.rmatvec, free)
         self.method = method

@@ -1,12 +1,15 @@
-"""Newton solver with damping and backtracking line search (port of
-femo_tpu/solvers/newton.py::newton_solve).
+"""Newton solvers (port of femo_tpu/solvers/newton.py).
 
-A host loop: each iteration assembles the Jacobian, factors it with the
-LinearSolver and reads the residual norm on the host.  Tolerance
-defaults mirror the reference's SNES settings (atol/rtol 1e-13, at most
-100 iterations).  The factorization of the last iteration is returned
-for the adjoint.  `newton_solve_jit` (the matrix-free device loop) is not
-ported.
+* `newton_solve` — damping and backtracking line search.  A host loop:
+  each iteration assembles the Jacobian, factors it with the
+  LinearSolver and reads the residual norm on the host.  Tolerance
+  defaults mirror the reference's SNES settings (atol/rtol 1e-13, at
+  most 100 iterations).  The factorization of the last iteration is
+  returned for the adjoint.
+* `newton_solve_jit` — matrix-free Newton-Krylov: the Jacobian action
+  is `torch.func.jvp` of the constrained residual, no matrix is formed.
+  The JAX package runs it as one `lax.while_loop`; here it is a host
+  loop over device tensors with the same stopping rule.
 """
 
 from __future__ import annotations
@@ -15,9 +18,11 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.func import jvp
 
 from ..config import config
 from ..fea.bc import apply_bc, constrain_residual
+from .krylov import bicgstab, cg
 from .linear import LinearSolver
 
 
@@ -89,3 +94,51 @@ def newton_solve(
         # already converged at entry; factor once for the adjoint
         fac = linear_solver.factor(jac_fn(u), free)
     return u, fac, NewtonInfo(it, rn, rn0, bool(converged))
+
+
+def newton_solve_jit(
+    res_fn: Callable,
+    u0: torch.Tensor,
+    free: torch.Tensor,
+    bc_values: torch.Tensor,
+    rtol: float = 1e-10,
+    atol: float = 1e-12,
+    maxiter: int = 30,
+    damping: float = 1.0,
+    krylov: str = "cg",
+    krylov_rtol: float = 1e-8,
+    krylov_maxiter: int = 2000,
+    diag_fn: Callable | None = None,
+):
+    """Matrix-free Newton-Krylov.  Each Krylov matvec is `torch.func.jvp`
+    of the constrained residual at the current iterate; diag_fn(u)
+    optionally returns the Jacobian diagonal for Jacobi preconditioning.
+    Returns (u, ||R_c(u)|| as a tensor, Newton iterations)."""
+    solver = cg if krylov == "cg" else bicgstab
+
+    def Rc(u):
+        return constrain_residual(res_fn(u), u, free, bc_values)
+
+    u = apply_bc(u0, free, bc_values)
+    R = Rc(u)
+    rn0 = rn = torch.linalg.norm(R)
+    tol = torch.clamp(rtol * rn0, min=atol)
+    k = 0
+    while k < maxiter and bool(rn > tol):
+        def jvp_mv(w, u=u):
+            wf = torch.where(free, w, 0.0)
+            _, Jw = jvp(Rc, (u,), (wf,))
+            return torch.where(free, Jw, w)
+
+        M = None
+        if diag_fn is not None:
+            d = torch.where(free, diag_fn(u), 1.0)
+            d = torch.where(torch.abs(d) > 1e-30, d, 1.0)
+            M = lambda x, d=d: x / d  # noqa: E731
+        res = solver(jvp_mv, -R, M=M, rtol=krylov_rtol,
+                     maxiter=krylov_maxiter)
+        u = apply_bc(u + damping * res.x, free, bc_values)
+        R = Rc(u)
+        rn = torch.linalg.norm(R)
+        k += 1
+    return u, rn, k

@@ -45,7 +45,7 @@ from femo_tpu_torch.graph.optimizer import OptimizationProblem, SLSQP
 from femo_tpu_torch.graph.simulator import Simulator
 from femo_tpu_torch.mesh.generators import create_unit_square_mesh
 from femo_tpu_torch.models.motor.model import build_motor_jit_step
-from femo_tpu_torch.models.poisson import build_fea
+from femo_tpu_torch.models.poisson import build_fea, build_jit_opt_step
 from femo_tpu_torch.solvers.linear import LinearSolver
 
 torch.set_num_threads(1)
@@ -266,8 +266,10 @@ def test_default_device_is_the_card(entry):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="weak_bc"):
-        build_fea(nel=2, weak_bc=True, device="cpu")
+    # weak_bc is ported (tests/test_torch_weak_bc.py); sharded assembly is
+    # not
+    with pytest.raises(NotImplementedError, match="device_mesh"):
+        build_jit_opt_step(nel=2, device_mesh=object(), device="cpu")
     fea, d = build_fea(nel=2, device="cpu")
     # a field output needs its CG1 test space
     with pytest.raises(ValueError, match="test space"):
