@@ -101,16 +101,46 @@ non-zero without the final line:
    matvec/rmatvec, whose later blocks add into the first block's output,
    twice bit for bit; in phase 14 K1/K2 against plain (f64 1e-12) and
    timed on the block-Thomas factors that preconditioned the solves.
+20. shell: the W6 compliance step build_shell_jit_step(n_shell=(24, 400))
+   (19,200 cells, 147,822 dofs, nb=289 blocks of B=512) in f64, in the
+   oracle's f64 configuration a (split_programs, pcg_iters=2) and in the
+   JAX package's TPU production configuration b (f32 factor storage,
+   pcg_iters=4): the first step with K1/K2 counted (2 (2 + pcg_iters)
+   each) and one factor, the median of 5 warm steps, the peak device
+   memory; the residual at a random state against the JAX package's
+   (1e-12); compliance and gradient against oracles/shell_oracle.npz at
+   the fixed bars of SHELL_GATES (the energy estimate 2 (J - E), J, the
+   gradient; set from the readings of the first runs on the card, PERF.md
+   §6: every solve stalls at f64's residual floor for this thin-shell
+   operator, which moves J by ~2e-6 at this size, where the energy
+   estimate, second order in the state's error, agrees to ~6e-13);
+   K1/K2 against plain on each configuration's own factor (10x the plain
+   solve's spread under reordered sums, step residuals 1e-12), timed on
+   a's; two runs of the residual, the template fill and the step give
+   equal bits; the card against CPU tensors at (6, 8) within 10x the JAX
+   package's own spread between its step paths of the same kind.
+21. shell_modal: shift-invert Lanczos on the (24, 400) plate, 6 modes, 40
+   iterations, each one K1 + K2 launch; frequencies against the oracle
+   where the JAX run converged them: the Rayleigh quotients from the
+   modes' strain energy at 1e-10, the Lanczos values at the fixed bars of
+   MODAL_GATES (1e-6; the fundamental 1e-5, the f64 floor again).
+22. shell_module: ShellModule on the (16, 24) plate through Simulator.run
+   and objective_gradient of compliance and the p-norm stress (K1/K2 5
+   each), each output against the oracle within 10x the JAX package's
+   own jit_bt vs jit_dense spread for that output, at least 1e-12;
+   K1/K2 against plain on the (16, 24) step's factors, f64 and f32
+   storage.
 
 Each phase prints its wall seconds.  It prints a JSON line describing
-the kernels (K1/K2 with their launches on every motor path, K4/K4T on
-W1, W1 with weak BCs, W2 and W4), and last
+the kernels (K1/K2 with their launches on every motor path and the
+shell's, K4/K4T on W1, W1 with weak BCs, W2 and W4), and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import statistics
@@ -145,13 +175,18 @@ from femo_tpu_torch.mesh.generators import create_unit_square_mesh
 from femo_tpu_torch.models.beam import OPENMDAO_THICK_REF, build_beam_problem
 from femo_tpu_torch.models.poisson import (
     build_fea, build_jit_opt_step, on_boundary)
+from femo_tpu_torch.models.shell import (
+    build_shell_jit_step, modal_operators, plate_shell, shell_modal_analysis)
+from femo_tpu_torch.models.shell_module import plate_module
 from femo_tpu_torch.models.topopt import build_topopt_model
 from femo_tpu_torch.ops import bt_sweeps, spmv
 from femo_tpu_torch.ops.block_tridiag import BlockTridiagonalMatrix
 from femo_tpu_torch.solvers.krylov import cg
 from femo_tpu_torch.solvers.linear import (
     BlockThomasKrylovFactorization, KrylovFactorization, LinearSolver)
-from femo_tpu_torch.tools.profile_step import layer_ranges
+from femo_tpu_torch.tools.profile_step import SHELL_LAYERS, layer_ranges
+from femo_tpu_torch.tools.shell_parity import (
+    module_bars, path_kind, step_spread)
 
 # experiments/motor_latency_oracle.json (the JAX package, f64, CPU)
 ORACLE = {1: 28.709006394182538, 4: 30.388014626154067}
@@ -1868,6 +1903,359 @@ def phase_beam():
 
 
 
+SHELL_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "oracles", "shell_oracle.npz")
+SHELL_FULL = dict(n_shell=[24, 400])
+SHELL_RESIDUAL = dict(SHELL_FULL, seed=3, scale=1e-3)
+SHELL_CONFIGS = {
+    "a": dict(SHELL_FULL, split_programs=True, pcg_iters=2),
+    "b": dict(SHELL_FULL, split_programs=True, spd=True,
+              factor_store_dtype="float32", pcg_iters=4),
+    "a_jacobi": dict(SHELL_FULL, jacobi_scale=True, pcg_iters=2),
+    "b_mixed": dict(SHELL_FULL, split_programs=True, pcg_iters=4,
+                    factor_compute_dtype="mixed",
+                    factor_store_dtype="float32"),
+    "full_residual": SHELL_RESIDUAL,
+    "modal": dict(SHELL_FULL, n_modes=6, method="lanczos",
+                  lanczos_iters=40, seed=0, check_iters=60),
+    "module": dict(n_shell=[16, 24], span=4.0, chord=1.0, E=7e10, nu=0.3,
+                   thickness=0.01, n_aero=[8, 12], force_z=-80.0),
+}
+# Fixed bars against the oracle at (24, 400): the energy estimate J_E =
+# 2 (J - E) (relative), J (relative) and the gradient (relative L2), for
+# the f64 configuration a and the f32-stored factor of the JAX package's
+# TPU production configuration b.  Every f64 solve of this operator stalls
+# at ||R_c|| ~4e-4, which moves J, first order in the state's error, by
+# ~2e-6; J_E is second order.  Set from the readings of the first runs on
+# the card (PERF.md §6; H100 80GB HBM3, 700 W): a J_E 6.2e-13, J 3.7e-6,
+# gradient 7.2e-6; b J_E 5.8e-6, J 1.1e-5, gradient 1.3e-4.
+SHELL_GATES = {"a": dict(JE=1e-10, J=1e-5, grad=2e-5),
+               "b": dict(JE=1e-5, J=3e-5, grad=4e-4)}
+# the JAX package's other path beside each (printed: its own spread)
+SHELL_PAIRS = {"a": "a_jacobi", "b": "b_mixed"}
+SHELL_SMALL = (6, 8)  # card against CPU tensors
+SHELL_MODULE_OUTPUTS = ("mass", "compliance", "elastic_energy",
+                        "pnorm_stress", "nodal_displacements", "von_mises")
+# Lanczos frequencies (relative) against the oracle, mode by mode: the
+# fundamental at the f64 floor (read 2.7e-6 in the first runs), the
+# others at 1e-6 (read <= 4e-8); the modes' Rayleigh quotients, second
+# order, at 1e-10 (read <= 7.9e-13)
+MODAL_GATES = (1e-5, 1e-6, 1e-6, 1e-6, 1e-6, 1e-6)
+MODAL_RQ_GATE = 1e-10
+
+
+def shell_oracle(key):
+    """The shell oracle file, after checking that entry `key` was computed
+    for the configuration driven here."""
+    oracle = np.load(SHELL_ORACLE)
+    got = json.loads(str(oracle[f"{key}_config"]))
+    if got != json.loads(json.dumps(SHELL_CONFIGS[key])):
+        raise AssertionError(f"shell oracle entry {key} is for {got}, not "
+                             f"{SHELL_CONFIGS[key]}")
+    return oracle
+
+
+def shell_kwargs(c):
+    return {k: (tuple(v) if isinstance(v, list) else v)
+            for k, v in c.items()}
+
+
+def shell_gates(key, info, t0):
+    """The bars of configuration `key` against the oracle (SHELL_GATES),
+    after holding the card's energy estimate J_E to the JAX package's;
+    prints both solutions' first-order errors |J - J_E| / J_E and the JAX
+    package's own spread between `key` and its SHELL_PAIRS path."""
+    oracle = shell_oracle(key)
+    x = info["programs"]["solve"](t0)
+    C, JE = info["shell"].energy_estimate(info["state"], x, t0,
+                                          info["consts"]["force"])
+    JE_jax, J_jax = float(oracle[f"{key}_JE"]), float(oracle[f"{key}_J"])
+    gate = SHELL_GATES[key]
+    rE = abs(JE - JE_jax) / abs(JE_jax)
+    o = shell_oracle(SHELL_PAIRS[key])
+    J2, g0, g2 = (float(o[f"{SHELL_PAIRS[key]}_J"]), o[f"{key}_grad"],
+                  o[f"{SHELL_PAIRS[key]}_grad"])
+    print(f"  energy estimate J_E {JE!r}, JAX {JE_jax!r}, rel {rE:.3e} (tol "
+          f"{gate['JE']:.0e}); first-order errors |J - J_E| / J_E: card "
+          f"{abs(C - JE) / abs(JE):.3e}, JAX "
+          f"{abs(J_jax - JE_jax) / abs(JE_jax):.3e}; the JAX package's own "
+          f"{key} vs {SHELL_PAIRS[key]}: J {abs(J_jax - J2) / abs(J_jax):.3e}"
+          f", gradient {np.linalg.norm(g0 - g2) / np.linalg.norm(g0):.3e}")
+    if not rE <= gate["JE"]:
+        raise AssertionError(f"shell {key}: the energy estimate differs "
+                             "from the JAX package's")
+    return gate["J"], gate["grad"]
+
+
+def shell_operator_parity(info, t0):
+    """The composite residual at the oracle's random state (no solve)
+    against the JAX package's at (24, 400): max abs over max abs, 1e-12."""
+    oracle = shell_oracle("full_residual")
+    c = SHELL_RESIDUAL
+    x = torch.as_tensor(c["scale"] * np.random.default_rng(
+        c["seed"]).standard_normal(info["n_dofs"]), device=DEVICE)
+    with torch.no_grad():
+        r = info["state"].residual(x, {"thickness": t0,
+                                       "force": info["consts"]["force"]})
+    want = oracle["full_residual_r"]
+    err = float(np.abs(r.cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"  residual at a random state vs JAX: {err:.3e} (tol 1e-12)")
+    if not err <= 1e-12:
+        raise AssertionError("the shell operator differs from the JAX one")
+    return err
+
+
+def shell_counted(label, fn):
+    """fn() with the K1/K2 counts reset just before and read just after,
+    the shell step's layers counted (the step profiler's shell ranges):
+    (seconds, fn's result, launches, calls)."""
+    reset(bt_sweeps.launches)
+    with layer_ranges(SHELL_LAYERS) as lr:
+        t, out = synced(fn)
+    launches = dict(bt_sweeps.launches)
+    print(f"  {label}: {t:.3f} s; K1 {launches['K1']}, K2 "
+          f"{launches['K2']} launches; {lr.calls['bt.factor']} factors, "
+          f"{lr.calls['composite.jacobian']} Jacobian assemblies, "
+          f"{lr.calls['bt.fill']} fills, {lr.calls['bt.solve']} block "
+          "solves")
+    return t, out, launches, dict(lr.calls)
+
+
+def check_shell_factor(info, t0, store, label, err, seed):
+    """K1/K2 against plain on the step's factor (the shell's operator at
+    t0 through the step's template, factored with the step's storage
+    option `store`), with the bar of 10x the plain solve's spread under
+    reordered sums and the step residuals at 1e-12; returns (factor,
+    right-hand side)."""
+    x = torch.zeros(info["n_dofs"], dtype=torch.float64, device=DEVICE)
+    blocks = info["state"].jacobian_blocks(
+        x, {"thickness": t0, "force": info["consts"]["force"]})
+    with torch.no_grad():
+        fac = info["bt_tpl"].matrix(blocks).factor(store, spd=True)
+    nb, B = fac.Sinv.shape[:2]
+    bb = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (nb, B)), dtype=torch.float64, device=DEVICE)
+    check_sweeps(fac, bb, f"{label} factor nb={nb} B={B}", err, spread=True)
+    return fac, bb
+
+
+def phase_shell(err):
+    """The W6 compliance step at (24, 400) (19,200 cells, 147,822 dofs,
+    nb=289 blocks of B=512) in f64 on the card, configurations a (f64
+    storage, pcg_iters=2) and b (f32 storage, pcg_iters=4): the first
+    step with its K1/K2 launches and layers counted, the median of 5 warm
+    steps, the peak device memory, the residual against the JAX
+    package's (a), compliance and gradient against the oracle
+    (shell_gates); K1/K2 against plain on each configuration's own factor
+    (timed on a's); the determinism of the residual, the fill and the
+    step (a); the card against CPU tensors at (6, 8) in both
+    configurations."""
+    out, shapes = {}, []
+    for key in ("a", "b"):
+        c = SHELL_CONFIGS[key]
+        oracle = shell_oracle(key)
+        pcg = c["pcg_iters"]
+        torch.cuda.reset_peak_memory_stats()
+        t_build, (step, t0, info) = synced(
+            lambda: build_shell_jit_step(device=DEVICE, **shell_kwargs(c)))
+        tpl = info["bt_tpl"]
+        print(f"shell {key} {c}: {info['n_cells']} cells, {info['n_dofs']} "
+              f"dofs, nb={tpl.nb} B={tpl.B} (RCM bandwidth {tpl.bw}); build "
+              f"{t_build:.2f} s")
+        t_first, (J, g), launches, calls = shell_counted(
+            "first step", lambda: step(t0))
+        # forward: the solve, PCG's first preconditioning and one per
+        # iteration; the adjoint the same, with the forward's factor
+        want = 2 * (2 + pcg)
+        if launches != {"K1": want, "K2": want} or calls["bt.factor"] != 1:
+            raise AssertionError(f"shell {key}: launches {launches}, "
+                                 f"{calls['bt.factor']} factors; want "
+                                 f"{want} each and 1 factor")
+        warm = [synced(lambda: step(t0))[0] for _ in range(5)]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  warm steps {[round(w, 4) for w in warm]} s, median "
+              f"{statistics.median(warm):.4f} s; peak device memory "
+              f"{peak / 2**30:.3f} GiB")
+        if key == "a":
+            parity = shell_operator_parity(info, t0)
+        check_oracle_values(f"shell {key}", J, g, oracle[f"{key}_J"],
+                            oracle[f"{key}_grad"],
+                            *shell_gates(key, info, t0))
+        fac, bb = check_shell_factor(info, t0, c.get("factor_store_dtype"),
+                                     f"shell {key}", err,
+                                     seed=31 + len(key))
+        if key == "a":
+            shapes.append(time_sweeps(fac, bb, "shell (24, 400)"))
+            det = shell_determinism(step, t0, info, J, g)
+        out[key] = dict(build_s=t_build, first_s=t_first, warm_s=warm,
+                        warm_median_s=statistics.median(warm),
+                        peak_gib=peak / 2**30, J=float(J),
+                        launches=launches, factors=calls["bt.factor"],
+                        solves=calls["bt.solve"])
+        del step, info, fac, bb
+        # a's solve op sits in a reference cycle (it holds an
+        # autograd.Function class): free it before b's peak is read
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["determinism"] = det
+    out["residual_vs_jax"] = parity
+    out["card_vs_cpu"] = shell_card_vs_cpu()
+    return out, shapes
+
+
+def shell_determinism(step, t0, info, J, g):
+    """Two runs each of the shell residual at a random state, the template
+    fill of the Jacobian and the step give the same bits."""
+    state, tpl = info["state"], info["bt_tpl"]
+    rng = np.random.default_rng(23)
+    x = torch.as_tensor(1e-3 * rng.standard_normal(info["n_dofs"]),
+                        device=DEVICE)
+    inputs = {"thickness": t0, "force": info["consts"]["force"]}
+    with torch.no_grad():
+        r = [state.residual(x, inputs) for _ in range(2)]
+        same_bits("shell residual", *r)
+        blocks = state.jacobian_blocks(x, inputs)
+        fills = [torch.stack(tpl.fill(blocks)) for _ in range(2)]
+        same_bits("shell template fill (3, nb, B, B)", *fills)
+    J2, g2 = step(t0)
+    same_bits("shell step compliance", J, J2)
+    same_bits("shell step gradient", g, g2)
+    return True
+
+
+def shell_card_vs_cpu():
+    """Configurations a and b at (6, 8) on the card and on CPU tensors:
+    within 10x the JAX package's own spread between its step paths of
+    the same kind (the conditioning lets two correct solves differ by
+    that much)."""
+    oracle = shell_oracle("a")
+    res = {}
+    for key in ("a", "b"):
+        kw = dict(shell_kwargs(SHELL_CONFIGS[key]), n_shell=SHELL_SMALL)
+        vals = {}
+        for dev in (DEVICE, "cpu"):
+            step, t0, _ = build_shell_jit_step(device=dev, **kw)
+            vals[dev] = [v.cpu().numpy() for v in step(t0)]
+        sJ, sg = step_spread(oracle, path_kind(SHELL_CONFIGS[key]))
+        (Jc, gc), (Jh, gh) = vals[DEVICE], vals["cpu"]
+        rJ = abs(float(Jc) - float(Jh)) / abs(float(Jh))
+        rg = float(np.linalg.norm(gc - gh) / np.linalg.norm(gh))
+        print(f"  shell {key} at {SHELL_SMALL}, card vs CPU tensors: J rel "
+              f"{rJ:.3e} (bar {10 * sJ:.3e}), gradient rel L2 {rg:.3e} "
+              f"(bar {10 * sg:.3e}; 10x the JAX package's own spread "
+              "between its step paths of this kind)")
+        if not (rJ <= 10 * sJ and rg <= 10 * sg):
+            raise AssertionError(f"shell {key}: card and CPU differ")
+        res[key] = dict(J_rel=rJ, grad_rel=rg)
+    return res
+
+
+def rayleigh_hz(shell, state, m, phi):
+    """The Rayleigh quotient of phi as a frequency: phi^T K phi = 2 E(phi)
+    from the strain energy (a sum of squares), over phi^T M phi; second
+    order in phi's error."""
+    parts = state.split(phi)
+    with torch.no_grad():
+        E = compile_form(shell.energy_form).scalar(
+            {"u": parts["u"], "theta": parts["theta"],
+             "thickness": shell.thickness.array,
+             "force": shell.force.array})
+    return float(torch.sqrt(2 * E / torch.sum(m * phi * phi))) / (2 * np.pi)
+
+
+def phase_shell_modal():
+    """shell_modal_analysis(n_modes=6, method="lanczos") on the (24, 400)
+    plate: 40 iterations, each one K1 + one K2 launch (counts reset just
+    before, read just after), frequencies against the oracle where the
+    JAX run converged them: the modes' Rayleigh quotients from their
+    strain energy (second order in the modes' error) within MODAL_RQ_GATE
+    of the JAX package's, and the Lanczos values within MODAL_GATES (both
+    packages' first-order errors |f - f_RQ| / f_RQ printed beside them);
+    the modes finite."""
+    c = SHELL_CONFIGS["modal"]
+    oracle = shell_oracle("modal")
+    shell, bcs = plate_shell(tuple(c["n_shell"]), device=DEVICE)
+    t, (freqs, modes), launches, calls = shell_counted(
+        "lanczos", lambda: shell_modal_analysis(
+            shell, bcs, n_modes=c["n_modes"], method=c["method"],
+            lanczos_iters=c["lanczos_iters"], seed=c["seed"]))
+    want = c["lanczos_iters"]
+    if launches != {"K1": want, "K2": want} or calls["bt.factor"] != 1:
+        raise AssertionError(f"modal: launches {launches}, "
+                             f"{calls['bt.factor']} factors")
+    f = freqs.cpu().numpy()
+    conv = oracle["modal_converged"]
+    r = np.abs(f - oracle["modal_freqs"]) / oracle["modal_freqs"]
+    state, _, m = modal_operators(shell, bcs)
+    rq = np.asarray([rayleigh_hz(shell, state, m, modes[:, j])
+                     for j in range(len(f))])
+    rq_jax = oracle["modal_freqs_rq"]
+    r_rq = np.abs(rq - rq_jax) / rq_jax
+    print(f"  Rayleigh quotients {list(rq)} Hz; JAX {list(rq_jax)}; rel "
+          f"{list(r_rq)} (tol {MODAL_RQ_GATE:.0e})")
+    if not np.all(r_rq[conv] <= MODAL_RQ_GATE):
+        raise AssertionError("Rayleigh quotients disagree with the oracle")
+    bars = np.asarray(MODAL_GATES)
+    print(f"  frequencies {list(f)} Hz; JAX {list(oracle['modal_freqs'])}; "
+          f"rel {list(r)}; bars {list(bars)} (where JAX converged: "
+          f"{list(conv)}); first-order errors |f - f_RQ| / f_RQ: card "
+          f"{list(np.abs(f - rq) / rq)}, JAX "
+          f"{list(np.abs(oracle['modal_freqs'] - rq_jax) / rq_jax)}")
+    if not (conv.any() and np.all(r[conv] <= bars[conv])):
+        raise AssertionError("modal frequencies disagree with the oracle")
+    if not (modes.shape == (shell.Vu.n_dofs + shell.Vth.n_dofs, 6)
+            and bool(torch.isfinite(modes).all())):
+        raise AssertionError("modes are not finite")
+    return dict(seconds=t, launches=launches, freqs=[float(v) for v in f])
+
+
+def phase_shell_module(err):
+    """ShellModule on the (16, 24) plate through the graph API: run, then
+    objective_gradient of compliance and of the p-norm stress with
+    respect to thickness, K1/K2 counted (1 solve for run, 1 + 1 adjoint
+    for each gradient); each output and gradient against the oracle
+    within 10x the JAX package's own spread between its jit_bt and
+    jit_dense modules for that output, at least 1e-12 (module_bars); then K1/K2 against plain on the (16, 24) compliance step's
+    factors in both storage options."""
+    c = SHELL_CONFIGS["module"]
+    oracle = shell_oracle("module")
+    mod, F = plate_module(**shell_kwargs(c), device=DEVICE)
+    sim = Simulator(mod)
+    sim["nodal_forces"] = F
+
+    def path():
+        out = dict(sim.run())
+        return out, {of: sim.objective_gradient(of, ["thickness"])
+                     for of in ("compliance", "pnorm_stress")}
+
+    t, (out, grads), launches, _ = shell_counted(
+        "run + 2 objective_gradient", path)
+    if launches != {"K1": 5, "K2": 5}:
+        raise AssertionError(f"module: launches {launches}, want 5 each")
+    got = {k: out[k] for k in SHELL_MODULE_OUTPUTS}
+    for of, (val, g, _) in grads.items():
+        got[f"{of}_value"], got[f"{of}_grad"] = val, g["thickness"]
+    bars = module_bars(oracle, "module", got)
+    worst, bad = 0.0, []
+    for k, v in got.items():
+        want = oracle[f"module_{k}"]
+        r = float(np.linalg.norm(v.detach().cpu().numpy().reshape(
+            want.shape) - want) / np.linalg.norm(want))
+        worst = max(worst, r)
+        print(f"  {k}: rel L2 {r:.3e} (bar {bars[k]:.3e})")
+        if not r <= bars[k]:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"ShellModule disagrees with the oracle: {bad}")
+    for store in (None, "float32"):
+        step, t0, info = build_shell_jit_step(
+            n_shell=tuple(c["n_shell"]), split_programs=True, pcg_iters=2,
+            factor_store_dtype=store, device=DEVICE)
+        check_shell_factor(info, t0, store, f"shell (16, 24) store {store}",
+                           err, seed=41)
+    return dict(seconds=t, launches=launches, worst_rel=worst)
+
+
 def kernel_entry(key, name, source, replaces, launches, err, t):
     """One kernel's entry of the kernels line.  ms, plain_ms and
     library_ms are medians of CUDA-event timings of single calls; the
@@ -1947,8 +2335,17 @@ def main():
         slice_c[name] = timed_phase(name, seconds, fn, *args)
     t_weak = slice_c["w1_weak"].pop("sweeps")
     print("slice C summary: " + json.dumps(slice_c))
+    shell, t_shell = timed_phase("shell", seconds, phase_shell, err)
+    modal = timed_phase("shell_modal", seconds, phase_shell_modal)
+    module = timed_phase("shell_module", seconds, phase_shell_module, err)
+    print("shell summary: " + json.dumps(dict(shell, modal=modal,
+                                              module=module)))
+    for key in ("a", "b"):
+        paths[f"shell_{key}"] = shell[key]["launches"]
+    paths["shell_modal"] = modal["launches"]
+    paths["shell_module"] = module["launches"]
     print(f"kernels vs plain on the steps' factors (refine 1 and 4, "
-          f"unstructured, W1 weak): max |kernel - plain| K1 "
+          f"unstructured, W1 weak, shell): max |kernel - plain| K1 "
           f"{err['K1']:.3e}, K2 {err['K2']:.3e}")
     # K4/K4T: max_abs_err over the nel=260 W1 operator and the Jacobians
     # of W1 weak, W2 and W4
@@ -1967,7 +2364,7 @@ def main():
                      device_ms=t[f"{k}_device"],
                      plain_device_ms=t[f"{k}_plain_device"],
                      library_device_ms=None, bound=t[f"{k}_bound"])),
-        shapes=[sweep_shape(k, ts) for ts in [t] + t4 + [t_weak]],
+        shapes=[sweep_shape(k, ts) for ts in [t] + t4 + [t_weak] + t_shell],
         launches_by_path=dict({p: n[k] for p, n in paths.items()},
                               w1_weak=slice_c["w1_weak"]["launches"][k]))
         for k, name, line in (("K1", "bt_fwd_sweep", 60),

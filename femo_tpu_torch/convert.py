@@ -32,7 +32,8 @@ def mesh_from_jax(jmesh) -> Mesh:
 def array_from_jax(a, device=None) -> torch.Tensor:
     """A tensor of the working dtype on `device` (default `config.device`)
     from a numpy array or anything np.asarray takes, e.g. a jax array or
-    a femo_tpu Function's `.array`."""
+    a femo_tpu Function's `.array` (the shell's thickness and force
+    fields, a state vector)."""
     return torch.as_tensor(np.array(a, np.float64), dtype=config.dtype,
                            device=get_device(device))
 

@@ -21,9 +21,13 @@ exterior-facet terms on intervals, triangles and quads).
   CUDA tensors (ops/spmv.py); each term keeps the kernels' row-owner
   maps of its pattern, built at first use.
 
-Not ported (raise NotImplementedError): manifold cells, facet terms of
-3D cells (tets, and the hex facets' dihedral variants), and the chunked
-entity loop.
+Manifold cells (tdim < gdim, the shell's triangles and quads in 3D) take
+tangential gradients K = G^{-1} J^T with G = J^T J, expose the geometry
+Jacobian to cell integrands as `g.J` (local frames), and give the edges
+of a 2D cell in 3D their in-plane outward normal t x (J0 x J1).
+
+Not ported (raise NotImplementedError): facet terms of 3D cells (tets,
+and the hex facets' dihedral variants), and the chunked entity loop.
 """
 
 from __future__ import annotations
@@ -132,8 +136,6 @@ class _Term:
         mesh = form.mesh
         self.domain = integral.domain
         spaces = form.spaces  # name -> FunctionSpace (test as "__test__")
-        if mesh.tdim != mesh.gdim:
-            raise NotImplementedError("manifold cells are not ported")
 
         qdeg = integral.qdeg or form.default_qdeg
         geo = geometry_element(mesh.cell_type)
@@ -303,7 +305,8 @@ class _Term:
     @staticmethod
     def _facet_geom(J, Tv, x, cent0):
         """Per-qp outward unit normal (nq, gdim) and facet measure (nq,):
-        on an edge, tangent t = J @ Tv^T and normal = rot(t); on the point
+        on an edge, tangent t = J @ Tv^T and normal = rot(t) in 2D, the
+        in-plane normal t x (J0 x J1) on a 2D cell in 3D; on the point
         facet of an interval, the unit vector from the cell centroid and
         measure 1.  Oriented away from the side-0 cell centroid."""
         if Tv.shape[0] == 0:
@@ -312,7 +315,12 @@ class _Term:
             return n, torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
         t1 = torch.einsum("qit,ft->qif", J, Tv)[:, :, 0]
         a = torch.linalg.norm(t1, dim=-1)
-        n = torch.stack([t1[:, 1], -t1[:, 0]], dim=-1) / a[:, None]
+        if J.shape[1] == 2:
+            n = torch.stack([t1[:, 1], -t1[:, 0]], dim=-1) / a[:, None]
+        else:
+            npl = torch.linalg.cross(J[:, :, 0], J[:, :, 1])
+            nv = torch.linalg.cross(t1, npl)
+            n = nv / torch.linalg.norm(nv, dim=-1, keepdim=True)
         sgn = torch.sign(torch.einsum("qi,qi->q", n, x - cent0[None, :]))
         return n * sgn[:, None], a
 
@@ -359,7 +367,7 @@ class _Term:
 
         if self.domain == "cell":
             def kernel(locals_, coords_e, h_e, tag_e):
-                x, detJ, K, _ = self._geometry(coords_e, self.Ng, self.dNg)
+                x, detJ, K, Jg = self._geometry(coords_e, self.Ng, self.dNg)
                 dNphys = {n: torch.einsum("qst,qtg->qsg", tabs[n].dN, K)
                           for n in all_names}
                 # physical Hessian on affine cells: K^T d2N K (no
@@ -372,12 +380,14 @@ class _Term:
                     qv = side_values(locals_, v_e, coords_e,
                                      lambda n: tabs[n].N, dNphys, d2phys)
 
-                    def at_qp(qv, x_q):
+                    def at_qp(qv, x_q, J_q):
+                        # g.J: the geometry Jacobian (gdim, tdim), for the
+                        # local frames of manifold cells
                         g = SimpleNamespace(x=x_q, h=h_e, tag=tag_e,
-                                            ctag=tag_e, n=None)
+                                            ctag=tag_e, n=None, J=J_q)
                         return value(integral.fn(w_of(qv, locals_), g))
 
-                    vals = vmap(at_qp)(qv, x)
+                    vals = vmap(at_qp)(qv, x, Jg)
                     return torch.sum(self.qw * detJ * vals)
 
                 if test_name is None:

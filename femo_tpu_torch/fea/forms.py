@@ -11,8 +11,10 @@ integrands (fea/assemble.py).
   and the form must be linear in it.  On interior facets each is a
   :class:`QR` restricted with ``w.u("+")`` / ``w.u("-")``.
 * ``g`` — geometry: ``g.x``, ``g.n`` (facets), ``g.h``, ``g.tag`` (the
-  cell's tag, or the facet's on facets) and, on facets, the owning cells'
-  tags: ``g.ctag`` (exterior), ``g.ctag0`` / ``g.ctag1`` (interior).
+  cell's tag, or the facet's on facets), on cells the geometry Jacobian
+  ``g.J`` (gdim, tdim) (the local frames of manifold cells) and, on
+  facets, the owning cells' tags: ``g.ctag`` (exterior), ``g.ctag0`` /
+  ``g.ctag1`` (interior).
 
 Operators that make a tensor of their own (``Identity``, and the
 functions of plain numbers) make it on the device of the form being

@@ -3,9 +3,10 @@
 A FunctionSpace is an Element + a host-built numpy dofmap (cell -> global
 dof indices) + scalar-dof coordinates, plus the device that its Functions
 and compiled forms live on.  A Function is a named handle around a flat
-dof tensor.  The port covers vertex-dof spaces: degree-1 Lagrange (the
-motor's and W1's CG1, scalar and ncomp=2) and the cubic Hermite interval
-element (W3's beam: a value and a derivative dof per vertex, the
+dof tensor.  The port covers Lagrange spaces of degree 1 and 2 (the
+shell's CG2 on triangles and Q2 on quads: vertex, then edge, then
+cell-interior dofs, in the JAX package's order), the cubic Hermite
+interval element (W3's beam: a value and a derivative dof per vertex, the
 derivative dof at its vertex's coordinates), and the cell-wise DG spaces
 (W1's DG0 control).
 """
@@ -70,19 +71,35 @@ class FunctionSpace:
             else:  # DG1: vertex positions per cell
                 coords = mesh.coords[mesh.cells].reshape(-1, mesh.gdim)
         else:
-            if any(per[1:]) or el.nscalar_dofs != per[0] * mesh.cells.shape[1]:
-                raise NotImplementedError(
-                    "the port builds vertex-only dofmaps (degree-1 "
-                    "Lagrange, Hermite)")
+            # entity dofmap: vertex dofs first, then edge dofs in the order
+            # of mesh.edges (the np.unique order), then cell-interior dofs
+            # (Q2's centre); Hermite derivative dofs share their vertex's
+            # coordinates, edge dofs sit at edge midpoints, interior dofs
+            # at the cell centroid
             pv = per[0]
+            pe = per[1] if len(per) > 1 else 0
             vm = mesh.cells.astype(np.int64)  # (nc, nv)
-            scalar_map = (vm[:, :, None] * pv
-                          + np.arange(pv)[None, None, :]).reshape(nc, -1)
-            n_scalar = mesh.n_nodes * pv
-            # Hermite derivative dofs (k = 1) share their vertex's coords
-            coords = np.zeros((n_scalar, mesh.gdim))
-            for k in range(pv):
-                coords[np.arange(mesh.n_nodes) * pv + k] = mesh.coords
+            blocks = [(vm[:, :, None] * pv
+                       + np.arange(pv)[None, None, :]).reshape(nc, -1)]
+            coords = [np.repeat(mesh.coords, pv, axis=0)]
+            offset = mesh.n_nodes * pv
+            if pe:
+                em = mesh.cell_edge_map.astype(np.int64)
+                blocks.append((offset + em[:, :, None] * pe
+                               + np.arange(pe)[None, None, :]).reshape(nc, -1))
+                coords.append(np.repeat(
+                    mesh.coords[mesh.edges].mean(axis=1), pe, axis=0))
+                offset += len(mesh.edges) * pe
+            n_int = el.nscalar_dofs - sum(b.shape[1] for b in blocks)
+            if n_int > 0:
+                blocks.append(offset + np.arange(nc, dtype=np.int64)[:, None]
+                              * n_int + np.arange(n_int)[None, :])
+                coords.append(np.repeat(
+                    mesh.coords[mesh.cells].mean(axis=1), n_int, axis=0))
+                offset += nc * n_int
+            scalar_map = np.concatenate(blocks, axis=1)
+            n_scalar = offset
+            coords = np.concatenate(coords)
 
         self.n_scalar_dofs = int(n_scalar)
         ncp = el.ncomp

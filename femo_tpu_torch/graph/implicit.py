@@ -26,8 +26,9 @@ converged state plus a VJP of the residual with respect to the inputs.
 * `implicit_solve_bt(...)` — fixed-count Newton through the
   block-tridiagonal template and the block-Thomas factor, with Shamanskii
   factor reuse (`refactor_every`, `freeze_operator`) and Jacobi scaling
-  (the port of `implicit_solve_bt_jit`).  Only factor_method="thomas" and
-  adjoint="refactor" are ported.
+  (the port of `implicit_solve_bt_jit`), the symmetric factor-reuse
+  adjoint and the factor storage options.  factor_method="cr" is not
+  ported.
 """
 
 from __future__ import annotations
@@ -306,7 +307,8 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
                       adjoint: str = "refactor",
                       jacobi_scale: bool = False,
                       refactor_every: int = 1,
-                      freeze_operator: bool = False):
+                      freeze_operator: bool = False,
+                      factor_store_dtype=None, spd: bool = False):
     """Differentiable Newton solve of residual_fn(u, inputs) = 0 (strong
     BCs by row masking) through the block-tridiagonal template, the port
     of `implicit_solve_bt_jit`.  jac_blocks_fn(u, inputs) -> [(A_e, rows,
@@ -334,9 +336,17 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
     jacobi_scale it raises ValueError, where the JAX package freezes an
     operator mixing raw D and U with the scaled L.
 
-    The adjoint re-fills the operator at the converged u and factors its
-    transpose (adjoint="refactor").  Only factor_method="thomas" and
-    adjoint="refactor" are ported.  The JAX package's guard against
+    factor_store_dtype, spd: `BlockTridiagonalMatrix.factor`'s
+    store_dtype and spd, for every factor of the solve.
+
+    adjoint="refactor" re-fills the operator at the converged u and
+    factors its transpose.  adjoint="reuse_symmetric" keeps the forward
+    factor (and its scale) and solves the adjoint with it: exact when the
+    residual is linear in u and the operator symmetric (an energy
+    Hessian such as the RM shell's), and it saves one fill and one
+    factor per gradient; it requires newton_iters = load_steps = 1 and
+    refactor_every = 1.  Only factor_method="thomas" is ported.  The JAX
+    package's guard against
     `sweeps="pallas"` in f64 without a PCG polish has no counterpart: the
     Pallas sweeps ran in f32, the port's CUDA sweeps run in the working
     dtype.
@@ -344,8 +354,14 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
     if factor_method != "thomas":
         raise ValueError(f"factor_method={factor_method!r}: only 'thomas' "
                          "is ported")
-    if adjoint != "refactor":
-        raise ValueError(f"adjoint={adjoint!r}: only 'refactor' is ported")
+    if adjoint not in ("refactor", "reuse_symmetric"):
+        raise ValueError(f"adjoint={adjoint!r}: 'refactor' or "
+                         "'reuse_symmetric'")
+    sym_reuse = adjoint == "reuse_symmetric"
+    if sym_reuse and (load_steps * newton_iters != 1 or refactor_every != 1):
+        raise ValueError(
+            "adjoint='reuse_symmetric' requires a single linear solve "
+            "(newton_iters=load_steps=1, refactor_every=1)")
     refactor_every = int(refactor_every)
     if refactor_every < 1:
         raise ValueError(f"refactor_every must be >= 1, got {refactor_every}")
@@ -368,7 +384,9 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
         """(the factor of mat, or of its equilibrated copy, and the scale
         s, None without jacobi_scale)."""
         smat, s = mat.jacobi_scaled() if jacobi_scale else (mat, None)
-        return (smat.factor_t() if transpose else smat.factor()), s
+        fac = (smat.factor_t(factor_store_dtype, spd) if transpose
+               else smat.factor(factor_store_dtype, spd))
+        return fac, s
 
     def scaled(mat, fac, s):
         """The preconditioner solve M(b) = S F^{-1} S b (F^{-1} b unscaled)."""
@@ -393,7 +411,7 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
             if freeze_operator:
                 if refactor:
                     mat = template.matrix(jac_blocks_fn(u, p))
-                    carry = (mat, mat.factor())
+                    carry = (mat, mat.factor(factor_store_dtype, spd))
                 mat, fac = carry
                 u = step(u, Rc, mat, fac.solve)
                 continue
@@ -404,12 +422,18 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
             L, Sinv, C, s = carry
             # the stale factor with the L it was computed from
             fac = BlockThomasFactor(mat._like(mat.D, L, mat.U), Sinv, C)
-            u = step(u, Rc, mat, scaled(mat, fac, s))
-        return u, None
+            M = scaled(mat, fac, s)
+            u = step(u, Rc, mat, M)
+        # reuse_symmetric: the last (only) operator and its factor serve
+        # the adjoint, A^T = A
+        return u, ((mat, M) if sym_reuse else None)
 
-    def backward(u, inputs, _, ubar):
-        mat = template.matrix(jac_blocks_fn(u, inputs))
-        M_t = scaled(mat, *factored(mat, transpose=True))
+    def backward(u, inputs, saved, ubar):
+        if saved is None:
+            mat = template.matrix(jac_blocks_fn(u, inputs))
+            M_t = scaled(mat, *factored(mat, transpose=True))
+        else:
+            mat, M_t = saved
         psi = M_t(ubar)
         if pcg_iters > 0:
             psi = pcg_fixed(mat, None, ubar, pcg_iters, x0=psi,

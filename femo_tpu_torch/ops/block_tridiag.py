@@ -11,7 +11,14 @@ matrix has bandwidth b; with block size B >= b (rounded up to a multiple of
   `@` (the JAX package left this recursion to XLA, not to Pallas).  No
   inter-block pivoting; the block inverses pivot.  Like the JAX recursion
   it does not check for singular blocks: a failed inverse shows as
-  non-finite values downstream, without a host sync per block.
+  non-finite values downstream, without a host sync per block.  Its
+  options are those of the JAX signature that a caller passes
+  (`store_dtype`, `spd`; `guard` raises); see `factor` for the
+  departures.
+* factor_spd: the Cholesky-storage variant for SPD operators
+  (BlockCholeskyFactor), on CPU tensors only: no kernel computes its
+  triangular forward sweep, and nothing in either package solves with it
+  outside the tests.
 * solve: the two triangular sweeps, ops/bt_sweeps.py (CUDA kernels on the
   card, plain loops on the CPU).
 * jacobi_scaled / scale_vector: the symmetric equilibration S A S; the
@@ -20,9 +27,8 @@ matrix has bandwidth b; with block size B >= b (rounded up to a multiple of
 * BlockTridiagFactorization: the `Factorization` adapter (solve, solve_t)
   of the `block_thomas` and `*_bt` LinearSolver backends.
 
-Not ported (slice D): reduced-precision factor storage and sweeps, the SPD
-(Cholesky) factor, cyclic reduction, the chunked and mixed-precision
-factors and `pcg_tol`.
+Not ported (the FSI slice): reduced-precision sweeps, cyclic reduction,
+the chunked factor and `pcg_tol`.
 """
 
 from __future__ import annotations
@@ -33,12 +39,26 @@ import numpy as np
 import torch
 
 from ..config import get_device
-from .bt_sweeps import bt_sweep_solve
+from .bt_sweeps import bt_sweep_solve, bwd_sweep_plain
 from .scatter import OwnerTable
 
 
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
+
+
+def _dtype(d):
+    """None, or a torch float dtype from a torch dtype or its name."""
+    if d is None or isinstance(d, torch.dtype):
+        return d
+    return getattr(torch, str(d))
+
+
+def _stored(X, store_dtype):
+    """X rounded to `store_dtype` and read back in X's dtype (None: X)."""
+    if store_dtype is None or store_dtype == X.dtype:
+        return X
+    return X.to(store_dtype).to(X.dtype)
 
 
 def _shift(xb, k):
@@ -110,22 +130,62 @@ class BlockTridiagonalMatrix:
         return self.from_blocks(y)
 
     # -- block Thomas factorization ---------------------------------------------
-    def factor(self) -> "BlockThomasFactor":
+    def factor(self, store_dtype=None, spd: bool = False,
+               guard: bool = False) -> "BlockThomasFactor":
         """Forward elimination: S_i = D_i - L_i C_{i-1}; stores S_i^{-1}
-        and C_i = S_i^{-1} U_i."""
+        and C_i = S_i^{-1} U_i.  The recursion always runs in the working
+        dtype.
+
+        store_dtype: round the stored Sinv and C to this dtype (e.g.
+        "float32" in an f64 solve).  The JAX solve promotes them back to
+        f64 in its einsums; here they are kept rounded in the working
+        dtype, so the sweeps read the same values but the memory is not
+        halved (a deliberate departure: a mixed-dtype K1/K2 is a later
+        perf item).
+        spd: the operator is SPD.  The block inverses stay the plain
+        (pivoted) inverse `inv_ex`, which is the same S^{-1} a Cholesky
+        inverse gives and the one the JAX package computes off the TPU;
+        its Cholesky branch exists for the TPU's missing f64 LU.
+        guard: the JAX package's rescue of non-finite or huge inverses in
+        low-precision recursions.  No caller of the port passes it (the
+        recursion runs in f64), so guard=True raises."""
+        if guard:
+            raise NotImplementedError(
+                "factor(guard=True) is not ported: the port's recursion "
+                "runs in the working dtype and no caller needs the rescue")
+        store = _dtype(store_dtype)
         C_prev = torch.zeros_like(self.D[0])
         Sinv, C = [], []
         for i in range(self.nb):
             S = self.D[i] - self.L[i] @ C_prev
             Si, _ = torch.linalg.inv_ex(S)
             C_prev = Si @ self.U[i]
-            Sinv.append(Si)
-            C.append(C_prev)
+            Sinv.append(_stored(Si, store))
+            C.append(_stored(C_prev, store))
         return BlockThomasFactor(self, torch.stack(Sinv), torch.stack(C))
 
-    def factor_t(self) -> "BlockThomasFactor":
+    def factor_t(self, store_dtype=None,
+                 spd: bool = False) -> "BlockThomasFactor":
         """Factorization of A^T (for adjoint solves)."""
-        return self._transposed().factor()
+        return self._transposed().factor(store_dtype, spd)
+
+    def factor_spd(self, store_dtype=None) -> "BlockCholeskyFactor":
+        """Cholesky-storage block Thomas for SPD operators: stores Lc_i
+        with S_i = Lc_i Lc_i^T and C_i = S_i^{-1} U_i, computed by two
+        triangular solves.  A^T = A, so the same factor serves adjoint
+        solves.  store_dtype rounds the stored Lc and C as in `factor`;
+        the recursion carries the unrounded C."""
+        store = _dtype(store_dtype)
+        C_prev = torch.zeros_like(self.D[0])
+        Lcs, C = [], []
+        for i in range(self.nb):
+            S = self.D[i] - self.L[i] @ C_prev
+            Lc = torch.linalg.cholesky(S)
+            Y = torch.linalg.solve_triangular(Lc, self.U[i], upper=False)
+            C_prev = torch.linalg.solve_triangular(Lc.mT, Y, upper=True)
+            Lcs.append(_stored(Lc, store))
+            C.append(_stored(C_prev, store))
+        return BlockCholeskyFactor(self, torch.stack(Lcs), torch.stack(C))
 
     def _transposed(self):
         # contiguous copies: the sweep kernels read row-major blocks, so
@@ -180,6 +240,35 @@ class BlockThomasFactor:
         for _ in range(refine):
             x = x + self.solve(b - self.mat.matvec(x))
         return x
+
+
+@dataclass
+class BlockCholeskyFactor:
+    """Solve phase of the Cholesky-storage block Thomas (`factor_spd`):
+    the forward sweep z_i = S_i^{-1}(b_i - L_i z_{i-1}) by two triangular
+    solves per block, the backward sweep x_i = z_i - C_i x_{i+1}, both
+    plain loops.  On CPU tensors only: a solve on the card goes through
+    K1/K2 (`factor`) or raises."""
+
+    mat: BlockTridiagonalMatrix
+    Lc: torch.Tensor  # (nb, B, B) lower Cholesky factor of S_i
+    C: torch.Tensor  # (nb, B, B) S_i^{-1} U_i
+
+    def solve(self, b):
+        if b.device.type != "cpu":
+            raise RuntimeError(
+                "BlockCholeskyFactor solves on CPU tensors only (no kernel "
+                "computes its triangular sweep); use factor() on the card")
+        m = self.mat
+        bb = m.to_blocks(b)
+        z, z_prev = [], torch.zeros_like(bb[0])
+        for i in range(m.nb):
+            rhs = (bb[i] - m.L[i] @ z_prev)[:, None]
+            y = torch.linalg.solve_triangular(self.Lc[i], rhs, upper=False)
+            z_prev = torch.linalg.solve_triangular(self.Lc[i].mT, y,
+                                                   upper=True)[:, 0]
+            z.append(z_prev)
+        return m.from_blocks(bwd_sweep_plain(self.C, torch.stack(z)))
 
 
 class BlockTridiagFactorization:

@@ -1,8 +1,9 @@
-"""Where the time of the port's motor step and W1 optimization step goes,
-on one CUDA card.
+"""Where the time of the port's motor step, W1 optimization step and W6
+shell compliance step goes, on one CUDA card.
 
     python -m femo_tpu_torch.tools.profile_step [--refine 1 4] [--w1 260]
-        [--refactor-every N] [--freeze-operator] [--steps 5] [--out FILE]
+        [--shell a b] [--refactor-every N] [--freeze-operator] [--steps 5]
+        [--out FILE]
 
 For each refine level the motor step is built in f64 in the
 configuration of the f64 oracle (experiments/motor_latency_oracle.json),
@@ -11,7 +12,12 @@ bench.py's refine-4 configuration, with `--freeze-operator` its refine-1
 one;
 for each `--w1` nel the W1 Poisson model is built in f64 (f = 0.5,
 objective l2_functional, `Simulator.run()` once) and its step is one
-`objective_gradient`, the call SLSQP makes each iteration.  Each step is
+`objective_gradient`, the call SLSQP makes each iteration; for each
+`--shell` configuration the shell step `build_shell_jit_step(n_shell=(24,
+400), split_programs=True, ...)` is built in f64, "a" with pcg_iters=2,
+"b" (the JAX package's TPU production configuration) with f32 factor
+storage and pcg_iters=4, and its step is one call (compliance and its
+thickness gradient).  Each step is
 run once to warm, timed over `--steps` untraced warm steps (host clock,
 ending in a device sync), then traced for one warm step with
 torch.profiler (CPU + CUDA).  During the traced step the port's layers
@@ -38,6 +44,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import functools
+import gc
 import json
 import os
 import statistics
@@ -51,7 +58,9 @@ from .. import set_precision
 from ..fea.assemble import CompiledForm
 from ..graph.model import FEAModel
 from ..graph.simulator import Simulator
+from ..fea.composite import CompositeState
 from ..models.motor.model import build_motor_jit_step
+from ..models.shell import build_shell_jit_step
 from ..models.poisson import build_fea
 from ..ops import bt_sweeps, spmv
 from ..ops.block_tridiag import (
@@ -86,6 +95,24 @@ W1_LAYERS = {
     "krylov.solve_t": (KrylovFactorization, "solve_t"),
     "spmv.K4": (spmv, "element_spmv_cuda"),
     "spmv.K4T": (spmv, "element_rspmv_cuda"),
+}
+# the shell step's layers
+SHELL_LAYERS = {
+    "assemble.residual": (CompiledForm, "vector"),
+    "assemble.scalar": (CompiledForm, "scalar"),
+    "composite.jacobian": (CompositeState, "jacobian_blocks"),
+    "bt.fill": (BlockTridiagTemplate, "fill"),
+    "bt.factor": (BlockTridiagonalMatrix, "factor"),
+    "bt.matvec": (BlockTridiagonalMatrix, "matvec"),
+    "bt.matvec_t": (BlockTridiagonalMatrix, "matvec_t"),
+    "bt.solve": (BlockThomasFactor, "solve"),
+    "sweeps.K1": (bt_sweeps, "fwd_sweep_cuda"),
+    "sweeps.K2": (bt_sweeps, "bwd_sweep_cuda"),
+}
+SHELL_CONFIGS = {
+    "a": dict(n_shell=(24, 400), split_programs=True, pcg_iters=2),
+    "b": dict(n_shell=(24, 400), split_programs=True, spd=True,
+              factor_store_dtype="float32", pcg_iters=4),
 }
 SWEEP_BLOCKS = {"sweeps.K1": 2, "sweeps.K2": 1}  # (B,B) blocks per step
 
@@ -186,6 +213,9 @@ def trace_step(step, steps, layers):
     t_first, _ = _sync_time(step)
     walls = [_sync_time(step)[0] for _ in range(steps)]
 
+    # an earlier step's solve ops sit in reference cycles (each holds an
+    # autograd.Function class): free them before the peak is read
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -236,12 +266,8 @@ def trace_step(step, steps, layers):
     }, out
 
 
-def profile_refine(refine, steps, **step_kw):
-    """The motor step at `refine` in ORACLE_CFG updated by step_kw."""
-    cfg = dict(ORACLE_CFG, **step_kw)
-    t_build, (step, (dv0, iq0), info) = _sync_time(
-        lambda: build_motor_jit_step(refine=refine, device="cuda", **cfg))
-    r, (loss, _) = trace_step(lambda: step(dv0, iq0), steps, LAYERS)
+def _sweep_rates(r):
+    """The sweeps' device time and streaming rate, into r."""
     sweep_us = {"sweeps.K1": sum(k["device_s"] for k in r["kernels"]
                                  if "bt_fwd_kernel" in k["name"]) * 1e6,
                 "sweeps.K2": sum(k["device_s"] for k in r["kernels"]
@@ -249,6 +275,15 @@ def profile_refine(refine, steps, **step_kw):
     r["sweep_device_s"] = {k: v * 1e-6 for k, v in sweep_us.items()}
     r["sweep_rate_gbs"] = {k: r["sweep_bytes"][k] / (sweep_us[k] * 1e-6)
                            / 1e9 for k in sweep_us if sweep_us[k] > 0}
+
+
+def profile_refine(refine, steps, **step_kw):
+    """The motor step at `refine` in ORACLE_CFG updated by step_kw."""
+    cfg = dict(ORACLE_CFG, **step_kw)
+    t_build, (step, (dv0, iq0), info) = _sync_time(
+        lambda: build_motor_jit_step(refine=refine, device="cuda", **cfg))
+    r, (loss, _) = trace_step(lambda: step(dv0, iq0), steps, LAYERS)
+    _sweep_rates(r)
     reuse = "".join(f", {k}={v}" for k, v in step_kw.items())
     r.update(name=f"motor refine {refine}{reuse}", refine=refine,
              step_kwargs=step_kw,
@@ -281,6 +316,21 @@ def profile_w1(nel, steps):
     return r
 
 
+def profile_shell(name, steps):
+    """The shell compliance step in SHELL_CONFIGS[name]."""
+    cfg = SHELL_CONFIGS[name]
+    t_build, (step, t0, info) = _sync_time(
+        lambda: build_shell_jit_step(device="cuda", **cfg))
+    r, (J, _) = trace_step(lambda: step(t0), steps, SHELL_LAYERS)
+    _sweep_rates(r)
+    tpl = info["bt_tpl"]
+    r.update(name=f"shell {name} {cfg}", config=name,
+             step_kwargs={k: v for k, v in cfg.items() if k != "n_shell"},
+             cells=info["n_cells"], dofs=info["n_dofs"],
+             bt=dict(nb=tpl.nb, B=tpl.B), loss=float(J), build_s=t_build)
+    return r
+
+
 def _summary(r, copy_gbs):
     print(f"{r['name']} ({r['cells']} cells): loss "
           f"{r['loss']!r}; warm step median {r['warm_step_median_s']:.4f} s "
@@ -309,6 +359,9 @@ def main(argv=None):
                     help="motor refine levels (none: no motor step)")
     ap.add_argument("--w1", type=int, nargs="*", default=[],
                     help="W1 mesh sizes nel")
+    ap.add_argument("--shell", nargs="*", default=[],
+                    choices=sorted(SHELL_CONFIGS),
+                    help="shell step configurations at n_shell=(24, 400)")
     ap.add_argument("--refactor-every", type=int, default=1,
                     help="motor step: factor every N Newton iterations")
     ap.add_argument("--freeze-operator", action="store_true",
@@ -334,7 +387,9 @@ def main(argv=None):
         step_kw["freeze_operator"] = True
     runs = ([lambda v=v: profile_refine(v, args.steps, **step_kw)
              for v in args.refine]
-            + [lambda v=v: profile_w1(v, args.steps) for v in args.w1])
+            + [lambda v=v: profile_w1(v, args.steps) for v in args.w1]
+            + [lambda v=v: profile_shell(v, args.steps)
+               for v in args.shell])
     for run in runs:
         r = run()
         _summary(r, copy_gbs)
