@@ -130,16 +130,48 @@ non-zero without the final line:
    own jit_bt vs jit_dense spread for that output, at least 1e-12;
    K1/K2 against plain on the (16, 24) step's factors, f64 and f32
    storage.
+23. fsi: the W7 static aeroelastic FSI anchor, build_fsi_jit_step(
+   n_shell=(4, 13440), n_vlm=(4, 32), span=30, thickness=0.05) (107,520
+   cells, 927,402 dofs, 128 panels, nb=7246 blocks of B=128) in f64 in
+   the JAX package's anchor solver (FSI_SOLVER: f32 factor storage, every
+   inner solve PCG to 1e-7, 5 rounds of 4 Gauss-Seidel passes, the
+   24-pass coupled adjoint): the build (the host template), the first
+   solve_with_grad with K1/K2/K4T counted (K1 and K2 once per inner solve
+   and per preconditioner application that pcg_tol reports, K4T once per
+   adjoint pass), the median of 3 warm ones with the stage seconds of the
+   last (fill, factor core, Gauss-Seidel, finalize, adjoint), equal bits
+   between warm calls, peak device memory, rel_delta, adj_delta and the
+   PCG iteration counts; force conservation (1e-13); the tip against
+   the exact solution of its own last linear system, solved apart from
+   the block-Thomas path by banded LU with partial pivoting on the host
+   and refined with longdouble residuals (FSI_GATES' anchor_solve);
+   K1/K2 against plain on the anchor's factor (10x the plain solve's
+   reordered-sum spread, step residuals 1e-12) and timed at (7246, 128);
+   K4T against plain on the force-load operator Fm (107,520 rectangular
+   18 x 9 blocks; 1e-14) and timed beside the transposed CSR product;
+   then the same wing against the JAX package's values
+   (oracles/fsi_oracle.npz) at (4, 6720) (53,760 cells; f32 factor
+   storage: tip and objective; f64 storage: tip, objective and
+   gradient) and at (4, 1680) (13,440 cells, chunked; f32 storage within
+   10x the JAX package's own spread, f64 storage at fixed bars, and the
+   residual at a random state, 1e-12).  The JAX package has no anchor
+   entry; its TPU records put the anchor tip at 17.66-17.69 (PERF.md
+   §6).
+24. fsi_small: bench_scale.py's small rung (16, 24) / (4, 8) against the
+   oracle within 10x the JAX package's own spread between two of its
+   factors, and the card against CPU tensors at (4, 6).
 
 Each phase prints its wall seconds.  It prints a JSON line describing
-the kernels (K1/K2 with their launches on every motor path and the
-shell's, K4/K4T on W1, W1 with weak BCs, W2 and W4), and last
+the kernels (K1/K2 with their launches on every motor path, the shell's
+and FSI's, K4/K4T on W1, W1 with weak BCs, W2 and W4, K4T on FSI's Fm),
+and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import os
@@ -175,6 +207,7 @@ from femo_tpu_torch.mesh.generators import create_unit_square_mesh
 from femo_tpu_torch.models.beam import OPENMDAO_THICK_REF, build_beam_problem
 from femo_tpu_torch.models.poisson import (
     build_fea, build_jit_opt_step, on_boundary)
+from femo_tpu_torch.models.fsi import build_fsi_jit_step
 from femo_tpu_torch.models.shell import (
     build_shell_jit_step, modal_operators, plate_shell, shell_modal_analysis)
 from femo_tpu_torch.models.shell_module import plate_module
@@ -184,9 +217,11 @@ from femo_tpu_torch.ops.block_tridiag import BlockTridiagonalMatrix
 from femo_tpu_torch.solvers.krylov import cg
 from femo_tpu_torch.solvers.linear import (
     BlockThomasKrylovFactorization, KrylovFactorization, LinearSolver)
-from femo_tpu_torch.tools.profile_step import SHELL_LAYERS, layer_ranges
+from femo_tpu_torch.tools.fsi_conditioning import direct_witness
+from femo_tpu_torch.tools.profile_step import (
+    FSI_LAYERS, SHELL_LAYERS, layer_ranges)
 from femo_tpu_torch.tools.shell_parity import (
-    module_bars, path_kind, step_spread)
+    ROUNDING, module_bars, path_kind, step_spread)
 
 # experiments/motor_latency_oracle.json (the JAX package, f64, CPU)
 ORACLE = {1: 28.709006394182538, 4: 30.388014626154067}
@@ -461,12 +496,17 @@ def check_real_factors(info, dv0, iq0, refine, err):
     return out
 
 
-def time_sweeps(fac, bb, label):
+def time_sweeps(fac, bb, label, plain_reps=50, profile=True):
     """Kernel and plain times, ms: the median of 50 CUDA-event timings of
-    one call, and the profiler's device time per call (the kernel's own
-    time plus the fill of its output with the not-yet-written mark), with
-    the bounds, the launch geometry and the device time per dependent
-    phase (2 nb - 1 for K1, nb - 1 for K2)."""
+    one call (`plain_reps` for the plain version, whose Python loop takes
+    a second at nb ~ 7,000), and the profiler's device time per call (the
+    kernel's own time plus the fill of its output with the not-yet-written
+    mark), with the bounds, the launch geometry and the device time per
+    dependent phase (2 nb - 1 for K1, nb - 1 for K2).  With profile=False
+    the device times are not measured (a trace of the plain loop's tens of
+    thousands of launches takes minutes) and the time per phase, the
+    share of the bound and the speed-up come from the event times, which a
+    call of ~10 ms holds with microseconds of host time."""
     m = fac.mat
     z = bt_sweeps.fwd_sweep_plain(fac.Sinv, m.L, bb)
     fns = {
@@ -482,16 +522,21 @@ def time_sweeps(fac, bb, label):
                               4 * nb * B * B, bb.dtype),
          "K2_bound": bound_ms((nb * B * B + 2 * nb * B) * s,
                               2 * nb * B * B, bb.dtype)}
-    t.update({k: cuda_ms(fn) for k, fn in fns.items()})
-    names = {"K1": "bt_fwd_kernel", "K2": "bt_bwd_kernel"}
-    t.update({f"{k}_device": device_ms(fn, names.get(k))
+    plain = {k: k.endswith("_plain") for k in fns}
+    t.update({k: cuda_ms(fn, reps=plain_reps if plain[k] else 50,
+                         warm=2 if plain[k] else 5)
               for k, fn in fns.items()})
-    print(f"  time, {label} nb={nb} B={B} f64 (median of 50, CUDA events): "
+    names = {"K1": "bt_fwd_kernel", "K2": "bt_bwd_kernel"}
+    t.update({f"{k}_device": device_ms(
+        fn, names.get(k), reps=min(plain_reps, 10) if plain[k] else 10)
+        if profile else None for k, fn in fns.items()})
+    print(f"  time, {label} nb={nb} B={B} f64 (median of 50, plain "
+          f"{plain_reps}, CUDA events): "
           f"K1 {t['K1']:.4f} ms vs plain {t['K1_plain']:.4f} ms, bound "
           f"{t['K1_bound'][0]:.4f} ms; K2 {t['K2']:.4f} ms vs plain "
           f"{t['K2_plain']:.4f} ms, bound {t['K2_bound'][0]:.4f} ms")
-    print(f"  device time per call (profiler, 10 calls): K1 "
-          f"{fmt_ms(t['K1_device'])} vs plain "
+    print(f"  device time per call (profiler, 10 calls, plain "
+          f"{min(plain_reps, 10)}): K1 {fmt_ms(t['K1_device'])} vs plain "
           f"{fmt_ms(t['K1_plain_device'])}; K2 {fmt_ms(t['K2_device'])} vs "
           f"plain {fmt_ms(t['K2_plain_device'])}")
     phases = {"K1": 2 * nb - 1, "K2": max(nb - 1, 1)}
@@ -500,10 +545,11 @@ def time_sweeps(fac, bb, label):
                                      bt_sweeps._sms(bb.device.index))
         t[f"{k}_geometry"] = dict(ctas=plan.ctas, rows=plan.rows,
                                   stages=plan.stages, smem=plan.smem)
-        dev = t[f"{k}_device"]
+        dev = t[f"{k}_device"] if profile else t[k]
         t[f"{k}_us_per_phase"] = ratio(dev, phases[k] / 1e3)
         share = ratio(t[f"{k}_bound"][0], dev)
-        speed = ratio(t[f"{k}_plain_device"], dev)
+        speed = ratio(t[f"{k}_plain_device"] if profile
+                      else t[f"{k}_plain"], dev)
         print(f"  {k}: G={plan.ctas} CTAs x R={plan.rows} rows, S="
               f"{plan.stages} stages, {plan.smem} B shared memory"
               + ("; device time not measured" if share is None else
@@ -1577,9 +1623,10 @@ def counted_solve_path(label, fn, fea, state):
     return t, out, launches, solves, factors
 
 
-def check_element_matrices(label, factors):
-    """K4/K4T on a path's own Jacobians (the ElementMatrix of every
-    factorization that solved) against their plain versions, f64
+def check_element_matrices(label, mats):
+    """K4/K4T on a path's own element matrices (the Jacobian of every
+    factorization that solved, or FSI's force-load operator) against their
+    plain versions, f64
     SPMV_TOL: each element block alone (a block whose plain product is
     exactly 0, as a load term's, must give exactly 0), then
     matvec/rmatvec, where every block after the first adds into the
@@ -1596,8 +1643,7 @@ def check_element_matrices(label, factors):
     rng = np.random.default_rng(11)
     tol = SPMV_TOL[torch.float64]
     err = {"K4": 0.0, "K4T": 0.0}
-    for j, fac in enumerate(factors):
-        A = fac.emat
+    for j, A in enumerate(mats):
         n_rows, n_cols = A.shape
         dev = A.blocks[0].A.device
         x = torch.as_tensor(rng.standard_normal(n_cols), device=dev)
@@ -1694,7 +1740,7 @@ def phase_w1_weak(err):
     if not ran:
         raise AssertionError("no block-Thomas factor preconditioned W1 weak")
     sweeps = time_sweeps(*ran[0], "w1_weak")
-    spmv_err = check_element_matrices("w1_weak", factors)
+    spmv_err = check_element_matrices("w1_weak", [f.emat for f in factors])
     t_warm, _ = synced(lambda: sim.objective_gradient(c["objective"],
                                                       ["f"]))
     print(f"  warm objective_gradient {t_warm:.3f} s")
@@ -1762,7 +1808,7 @@ def phase_w2():
     check_oracle_values("W2", val, grads["f"], oracle["w2_loss"],
                         oracle["w2_grad"], 1e-8, 1e-6)
     return dict(launches=launches, seconds=t,
-                err=check_element_matrices("w2", factors))
+                err=check_element_matrices("w2", [f.emat for f in factors]))
 
 
 def phase_jit_step():
@@ -1849,7 +1895,7 @@ def phase_topopt():
     if abs(float(out["avg_density"]) - float(oracle["topopt_avg_density"])) \
             > 1e-12:
         raise AssertionError("avg_density disagrees with the oracle")
-    spmv_err = check_element_matrices("topopt", factors)
+    spmv_err = check_element_matrices("topopt", [f.emat for f in factors])
     del factors
 
     oracle_s = slice_c_oracle("topopt_slsqp")
@@ -2256,6 +2302,431 @@ def phase_shell_module(err):
     return dict(seconds=t, launches=launches, worst_rel=worst)
 
 
+FSI_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "oracles", "fsi_oracle.npz")
+# the JAX package's anchor solver (bench_scale.py:373-381, SCALE.json's
+# 107,520-cell row): 4 passes a round, f32 factor storage, every inner
+# solve PCG to 1e-7 (at most 10 iterations), 5 rounds, 24 adjoint passes
+FSI_SOLVER = dict(gs_inner=4, factor_store_dtype="float32", pcg_rtol=1e-7,
+                  pcg_maxiter=10, rounds=5)
+FSI_CONFIGS = {
+    # the reference's eVTOL wing class (run_aeroelasticity_static_w_
+    # feedback.py:55): 107,520 cells, 927,402 dofs, nb=7246, B=128
+    "anchor": dict(n_shell=[4, 13440], n_vlm=[4, 32], span=30.0,
+                   thickness=0.05, **FSI_SOLVER),
+    # the same wing at half the anchor's spanwise resolution (53,760
+    # cells), and at an eighth (13,440 cells, chunked as the anchor is),
+    # against the JAX package's values (oracles/fsi_oracle.py)
+    "mid": dict(n_shell=[4, 6720], n_vlm=[4, 32], span=30.0,
+                thickness=0.05, **FSI_SOLVER),
+    "rung": dict(n_shell=[4, 1680], n_vlm=[4, 32], span=30.0,
+                 thickness=0.05, assembly_chunk=4096, **FSI_SOLVER),
+    # bench_scale.py's small rung
+    "small": dict(n_shell=[16, 24], n_vlm=[4, 8], span=4.0, thickness=0.01,
+                  **FSI_SOLVER),
+}
+# the JAX package's other paths beside a rung: their distance is its own
+# spread there
+FSI_PAIRS = {"mid": ("mid_f64",), "rung": ("rung_f64", "rung_mixed"),
+             "small": ("small_f64", "small_mixed")}
+FSI_SMALL_CPU = dict(n_shell=[4, 6], n_vlm=[2, 4], span=4.0, chord=1.0,
+                     gs_inner=4, relax=0.7, adj_passes=12, rounds=3,
+                     factor_store_dtype="float32", pcg_rtol=1e-7,
+                     pcg_maxiter=10)  # the CPU tests' "rtol" path
+# Fixed bars (no bar is computed from the run it judges), set from the
+# readings of this wing's first card runs (PERF.md §6; H100 80GB HBM3,
+# 700 W).  The wing's shell operator (span 30, chord 1, thickness 0.05,
+# elements 0.25 x 0.0022 at the anchor) is so ill-conditioned that its
+# f64 residuals stall at ~1e-2 at the anchor and ~3e-3 at (4, 6720)
+# (tools/fsi_conditioning.py), and a relative 1e-15 perturbation of
+# every assembled element-matrix entry moves the converged tip by
+# 0.71-0.78e-2 and 0.84-1.29e-3 there (2e-6 at (4, 420)).
+#   conservation: |total mapped - total aero| / |total aero|;
+#   anchor_solve: the anchor's tip against the exact solution of its own
+#     last linear system (banded LU with partial pivoting, refined with
+#     longdouble residuals: tools/fsi_conditioning.py's direct_witness),
+#     relative: read 4.0e-4 (the unrefined pivoted LU 2.8e-3, the solve
+#     with the factor stored in f64 1.4e-3);
+#   mid: the (4, 6720) tip and objective against the JAX package's, f32
+#     factor storage (relative; read 1.1e-3); its gradient is not gated:
+#     with the f32-stored factor ten PCG iterations leave the solution a
+#     true residual far above ||b|| in the stiff modes, and the JAX
+#     package's own f32- and f64-storage gradients differ by 2.2
+#     (relative L2);
+#   mid_f64, rung_f64: the same wing with f64 factor storage against the
+#     JAX package's f64-stored entries, tip and objective (relative) and
+#     gradient (relative L2): read 9.1e-4 and 1.7e-3 at (4, 6720) (the
+#     port's and the JAX package's element matrices, equal to rounding,
+#     give exact first-pass tips 1.9e-3 apart there), 5.1e-6 and 1.9e-5
+#     at (4, 1680);
+#   rung, small: 10x the JAX package's own spread between its paths
+#     (FSI_PAIRS), at least 1e-12 (tools/shell_parity.py's rule);
+#   residual: the (4, 1680) composite residual at a random state against
+#     the JAX package's, max abs over max abs.
+FSI_GATES = dict(conservation=1e-13, anchor_solve=1e-3,
+                 mid=dict(tip=5e-3, objective=5e-3),
+                 mid_f64=dict(tip=2.5e-3, objective=2.5e-3, grad=5e-3),
+                 rung_f64=dict(tip=1.5e-5, objective=1.5e-5, grad=6e-5),
+                 residual=1e-12)
+FSI_WARM = 3
+
+
+def fsi_config(key):
+    """The configuration of oracle entry `key` as driven here: an
+    FSI_CONFIGS entry, one with f64 factor storage ("_f64") or the JAX
+    package's mixed inverses ("_mixed"), or the CPU tests' path."""
+    base, _, kind = key.partition("_")
+    if key.startswith("jit_rtol"):
+        c, kind = dict(FSI_SMALL_CPU), key[len("jit_rtol_"):]
+    elif key == "rung_residual":
+        c = {k: v for k, v in FSI_CONFIGS["rung"].items()
+             if k not in FSI_SOLVER}
+        return dict(c, seed=3, scale=1e-3)
+    else:
+        c = dict(FSI_CONFIGS[base])
+    if kind == "f64":
+        c["factor_store_dtype"] = None
+    elif kind == "mixed":
+        c["factor_compute_dtype"] = "mixed"
+    return c
+
+
+def fsi_oracle(key):
+    """The FSI oracle's entry `key` (its values without the key prefix),
+    after checking that it was computed for fsi_config(key)."""
+    oracle = np.load(FSI_ORACLE)
+    cfg = fsi_config(key)
+    got = json.loads(str(oracle[f"{key}_config"]))
+    if got != json.loads(json.dumps(cfg)):
+        raise AssertionError(f"fsi oracle entry {key} is for {got}, not "
+                             f"{cfg}")
+    return {k[len(key) + 1:]: oracle[k] for k in oracle.files
+            if k.startswith(f"{key}_") and not k.endswith("_config")}
+
+
+def fsi_build(c, device=None):
+    return build_fsi_jit_step(device=device or DEVICE,
+                              **shell_kwargs({k: v for k, v in c.items()
+                                              if k != "rounds"}))
+
+
+def conservation(out):
+    a, m = out["total_aero_force"], out["total_mapped_force"]
+    return float(torch.linalg.norm(m - a) / torch.linalg.norm(a))
+
+
+def fsi_counted(label, f, rounds):
+    """f's solve_with_grad with K1/K2/K4T and the solver's counts reset
+    just before and read just after, the stages counted by the step
+    profiler's FSI ranges: (seconds, outputs, launches, stats, calls).
+    K1 and K2 must each launch once per inner solve and once per
+    preconditioner application of its PCG polish; K4T once per adjoint
+    pass and block of the force-load operator Fm."""
+    reset(bt_sweeps.launches)
+    reset(spmv.launches)
+    f["stats"].update(solves=0, precond=0, pcg_iters=[])
+    with layer_ranges(FSI_LAYERS) as lr:
+        t, out = synced(lambda: f["solve_with_grad"](f["t0"], rounds=rounds))
+    launches = {**bt_sweeps.launches, "K4T": spmv.launches["K4T"]}
+    stats = dict(f["stats"])
+    its = stats.pop("pcg_iters")
+    stats["pcg_iters_hist"] = np.bincount(its).tolist() if its else []
+    sweeps = stats["solves"] + stats["precond"]
+    fm_blocks = len(f["step"].fm().blocks)
+    want = {"K1": sweeps, "K2": sweeps,
+            "K4T": f["step"].adj_passes * fm_blocks}
+    print(f"  {label}: {t:.3f} s; K1 {launches['K1']}, K2 "
+          f"{launches['K2']}, K4T {launches['K4T']} launches (want "
+          f"{want}: {stats['solves']} solves + {stats['precond']} "
+          f"preconditioner applications of pcg_tol, whose iteration counts "
+          f"0.. are {stats['pcg_iters_hist']}; {f['step'].adj_passes} "
+          f"adjoint passes x {fm_blocks} Fm block); {lr.calls['fsi.fill']} "
+          f"fill, {lr.calls['fsi.factor_core']} factor, "
+          f"{lr.calls['fsi.vlm']} VLM solves, {lr.calls['fsi.rhs']} "
+          f"right-hand sides")
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    return t, out, launches, stats, dict(lr.calls)
+
+
+def fsi_outputs(out):
+    return dict(tip=float(out["tip_disp"]), objective=float(out["objective"]),
+                compliance=float(out["compliance"]),
+                rel_delta=float(out["rel_delta"]),
+                adj_delta=float(out["adj_delta"]),
+                conservation=conservation(out))
+
+
+def fsi_against(label, out, want, bars):
+    """out's tip, objective and gradient against the JAX values `want`
+    (relative; the gradient in L2), each at its bar where `bars` has one;
+    returns the readings."""
+    got = {"tip": float(out["tip_disp"]),
+           "objective": float(out["objective"]),
+           "grad": out["grad_thickness"].cpu().numpy()}
+    r = {k: float(np.linalg.norm(np.asarray(got[k]) - want[k])
+                  / np.linalg.norm(want[k])) for k in got}
+    bar = {k: (f"bar {bars[k]:.1e}" if k in bars else "not gated")
+           for k in got}
+    print(f"  {label} vs the JAX package: tip {got['tip']!r} (JAX "
+          f"{float(want['tip'])!r}) rel {r['tip']:.3e} ({bar['tip']}); "
+          f"objective rel {r['objective']:.3e} ({bar['objective']}); "
+          f"gradient ({got['grad'].size} values) rel L2 {r['grad']:.3e} "
+          f"({bar['grad']})")
+    if not all(r[k] <= bars[k] for k in bars):
+        raise AssertionError(f"{label} disagrees with the JAX package: {r}")
+    return r
+
+
+def jax_spread(key):
+    """The JAX package's own spread between `key` and its FSI_PAIRS paths:
+    the largest relative distance of each value between two of them."""
+    paths = [fsi_oracle(k) for k in (key,) + FSI_PAIRS[key]]
+    return {k: max(float(np.linalg.norm(np.asarray(a[k]) - b[k])
+                         / np.linalg.norm(b[k]))
+                   for a in paths for b in paths)
+            for k in ("tip", "objective", "grad")}
+
+
+def spread_bars(key):
+    """10x jax_spread(key), at least 10 ROUNDING."""
+    return {k: 10 * max(ROUNDING, v) for k, v in jax_spread(key).items()}
+
+
+def fsi_vs_jax(key, bars):
+    """The configuration of oracle entry `key` (fsi_config) on the card,
+    its launches counted, against the JAX package's values at `bars`,
+    with the JAX package's own spread there (FSI_PAIRS); force
+    conservation."""
+    c = fsi_config(key)
+    want = fsi_oracle(key)
+    t_build, f = synced(lambda: fsi_build(c))
+    print(f"fsi {key} {c}: {f['n_cells']} cells, {f['n_dofs']} dofs, "
+          f"nb={f['tpl'].nb}; build {t_build:.2f} s")
+    t, out, launches, stats, _ = fsi_counted("solve_with_grad", f,
+                                              c["rounds"])
+    r = fsi_outputs(out)
+    print(f"  conservation {r['conservation']:.3e}; rel_delta "
+          f"{r['rel_delta']:.3e} (JAX {float(want['rel_delta']):.3e}), "
+          f"adj_delta {r['adj_delta']:.3e} (JAX "
+          f"{float(want['adj_delta']):.3e})")
+    r["vs_jax"] = fsi_against(f"fsi {key}", out, want, bars)
+    if key in FSI_PAIRS:
+        r["jax_spread"] = jax_spread(key)
+        print(f"  the JAX package's own spread between "
+              f"{(key,) + FSI_PAIRS[key]}: "
+              f"{ {k: f'{v:.3e}' for k, v in r['jax_spread'].items()} }")
+    if not r["conservation"] <= FSI_GATES["conservation"]:
+        raise AssertionError(f"fsi {key}: forces not conserved")
+    r.update(build_s=t_build, seconds=t, launches=launches, stats=stats)
+    return r, f
+
+
+def fsi_residual_parity(f):
+    """The (4, 1680) composite residual at the oracle's random state and
+    force against the JAX package's: max abs over max abs."""
+    c = fsi_config("rung_residual")
+    want = fsi_oracle("rung_residual")["r"]
+    rng = np.random.default_rng(c["seed"])
+    x = torch.as_tensor(c["scale"] * rng.standard_normal(f["n_dofs"]),
+                        device=DEVICE)
+    force = torch.as_tensor(rng.standard_normal(f["shell"].Vf.n_dofs),
+                            device=DEVICE)
+    with torch.no_grad():
+        r = f["residual"](x, {"thickness": f["t0"], "force": force})
+    err = float(np.abs(r.cpu().numpy() - want).max() / np.abs(want).max())
+    print(f"  (4, 1680) residual at a random state vs JAX (chunks of "
+          f"{f['assembly_chunk']}): {err:.3e} (tol "
+          f"{FSI_GATES['residual']:.0e})")
+    if not err <= FSI_GATES["residual"]:
+        raise AssertionError("the FSI shell operator differs from JAX's")
+    return err
+
+
+def check_fsi_kernels(f, err, last):
+    """After the counted runs, on the anchor's own data: the tip of the
+    run `last` against the exact solution of its last system
+    (fsi_solve_witness); K1/K2 against
+    plain on its factor (f32 storage, as the run's) at 10x the plain
+    solve's spread under reordered sums, step residuals 1e-12, and timed
+    at (7246, 128); K4T against plain on Fm, its one block alone and
+    accumulated (f64 1e-14), and timed beside the transposed CSR
+    product."""
+    carry = f["factor"](f["t0"])
+    mat, fac = f["step"].bt.unpack(carry)
+    witness = fsi_solve_witness(f, mat, last)
+    nb, B = fac.Sinv.shape[:2]
+    bb = torch.as_tensor(np.random.default_rng(47).standard_normal((nb, B)),
+                         dtype=torch.float64, device=DEVICE)
+    check_sweeps(fac, bb, f"fsi anchor factor nb={nb} B={B}", err,
+                 spread=True)
+    t_sweeps = time_sweeps(fac, bb, "fsi anchor", plain_reps=3,
+                           profile=False)
+    del carry, mat, fac
+    Fm = f["step"].fm()
+    k4_err = check_element_matrices("fsi anchor Fm", [Fm])
+    (b0,) = Fm.blocks
+    ne, nr, nc = b0.A.shape
+    n_rows, n_cols = Fm.shape
+    y = torch.as_tensor(np.random.default_rng(48).standard_normal(n_rows),
+                        device=DEVICE)
+    csr_t = torch_csr(Fm.to_scipy_csr().T.tocsr())
+    nbytes = ne * nr * nc * 8 + ne * (nr + nc) * 4 + (n_rows + n_cols) * 8
+    t_k4t = time_spmv(
+        "K4T on Fm", "element_spmv_kernel",
+        lambda: spmv.element_rspmv_cuda(b0.A, b0.plan, y),
+        lambda: spmv.element_rspmv_plain(b0.A, b0.rows, b0.cols, y, n_cols),
+        lambda: torch.sparse.mm(csr_t, y[:, None]), nbytes, 2 * ne * nr * nc)
+    t_k4t["shape"] = dict(label="fsi anchor Fm (u test dofs x force dofs)",
+                          ne=ne, nr=nr, nc=nc, n_rows=n_rows, n_cols=n_cols)
+    return t_sweeps, t_k4t, k4_err["K4T"], witness
+
+
+def fsi_solve_witness(f, mat, last):
+    """The anchor's tip against the exact solution of its own last linear
+    system (finalize's right-hand side at the converged lattice
+    `last["disp_fluid"]`, on the operator `mat`), computed independently
+    of the block-Thomas factor, its sweeps and the PCG polish: LAPACK's
+    banded LU with partial pivoting on the host, refined with longdouble
+    residuals (tools/fsi_conditioning.py's direct_witness)."""
+    st = f["step"]
+    with torch.no_grad():
+        _, trac = st.traction(last["disp_fluid"])
+        _, b = st._rhs(f["t0"], trac.reshape(-1))
+    t, w = synced(lambda: direct_witness(mat, f["tpl"].bw, b, last["x"],
+                                         3 * st.tip_idx + 2, steps=3))
+    exact, tip = w["lu_tips"][-1], float(last["tip_disp"])
+    w["rel"] = abs(tip - exact) / abs(exact)
+    w["unrefined_rel"] = abs(w["lu_tips"][0] - exact) / abs(exact)
+    print(f"  anchor tip {tip!r} vs the exact solution of its last system "
+          f"{exact!r} (banded LU, kl={w['kl']}, {w['factor_s']:.1f} s, "
+          f"refined with longdouble residuals "
+          f"{[f'{v:.2e}' for v in w['lu_relres_ld']]}; {t:.1f} s in all): "
+          f"rel {w['rel']:.3e} (bar {FSI_GATES['anchor_solve']:.1e}); the "
+          f"unrefined LU rel {w['unrefined_rel']:.3e}; the run's solution's "
+          f"residual longdouble {w['port_relres_ld']:.3e}, f64 "
+          f"{w['port_relres_f64']:.3e}")
+    if w["port_tip"] != tip:
+        raise AssertionError("the witness's system is not the run's last")
+    if not w["rel"] <= FSI_GATES["anchor_solve"]:
+        raise AssertionError("fsi anchor: the tip disagrees with the "
+                             "exact solution of its own last system")
+    return w
+
+
+def phase_fsi(err):
+    """The W7 anchor, build_fsi_jit_step(n_shell=(4, 13440), n_vlm=(4,
+    32), span=30, thickness=0.05) in the JAX package's anchor solver
+    (FSI_SOLVER), f64, on the card: the build (the host template), the
+    first solve_with_grad with its launches and stages counted
+    (fsi_counted), FSI_WARM warm ones (median; the last with its stage
+    seconds; two of them give equal bits), peak device memory, force
+    conservation; then on the anchor's own factor, operator and Fm the
+    tip against the exact solution of its last system and the kernels
+    against plain (check_fsi_kernels); then the same wing at (4, 6720)
+    and (4, 1680), f32 and f64 factor storage, against the JAX package's
+    values (oracles/fsi_oracle.npz) and, at (4, 1680), its residual at a
+    random state."""
+    c = FSI_CONFIGS["anchor"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_build, f = synced(lambda: fsi_build(c))
+    tpl = f["tpl"]
+    print(f"fsi anchor {c}: {f['n_cells']} cells, {f['n_dofs']} dofs, "
+          f"{f['n_panels']} panels, nb={tpl.nb} B={tpl.B} (RCM bandwidth "
+          f"{tpl.bw}), assembly chunk {f['assembly_chunk']}; build "
+          f"{t_build:.2f} s")
+    t_first, out, launches, stats, calls = fsi_counted(
+        "first solve_with_grad", f, c["rounds"])
+    first = fsi_outputs(out)
+    warm, outs = [], []
+    for i in range(FSI_WARM):
+        # the last one's stages timed by their FSI_LAYERS ranges, synced
+        with layer_ranges(FSI_LAYERS, sync=True) if i == FSI_WARM - 1 \
+                else contextlib.nullcontext() as lr:
+            t, o = synced(lambda: f["solve_with_grad"](f["t0"],
+                                                       rounds=c["rounds"]))
+        warm.append(t)
+        outs.append(o)
+    peak = torch.cuda.max_memory_allocated()
+    stages = {k: lr.seconds[f"fsi.{k}"]
+              for k in ("fill", "factor_core", "gs", "finalize", "adjoint")}
+    print(f"  warm solve_with_grad {[round(w, 3) for w in warm]} s, median "
+          f"{statistics.median(warm):.3f} s; stages of the last "
+          f"{ {k: round(v, 3) for k, v in stages.items()} } s; peak "
+          f"device memory {peak / 2**30:.3f} GiB")
+    same_bits("fsi anchor tip, two warm calls", outs[0]["tip_disp"],
+              outs[1]["tip_disp"])
+    same_bits("fsi anchor gradient, two warm calls",
+              outs[0]["grad_thickness"], outs[1]["grad_thickness"])
+    same_bits("fsi anchor gradient, first and warm", out["grad_thickness"],
+              outs[0]["grad_thickness"])
+    g = out["grad_thickness"]
+    print(f"  tip {first['tip']!r} (the JAX package's TPU records: "
+          f"17.66-17.69, PERF.md §6); force conservation "
+          f"{first['conservation']:.3e} (tol {FSI_GATES['conservation']:.0e})"
+          f"; objective {first['objective']!r}, compliance "
+          f"{first['compliance']!r}; rel_delta {first['rel_delta']:.3e}, "
+          f"adj_delta {first['adj_delta']:.3e}; gradient {tuple(g.shape)}, "
+          f"|g| {float(torch.linalg.norm(g))!r}")
+    if not first["conservation"] <= FSI_GATES["conservation"]:
+        raise AssertionError(f"fsi anchor: forces not conserved: {first}")
+    if not (g.shape == (f["n_cells"],) and bool(torch.isfinite(g).all())):
+        raise AssertionError("fsi anchor gradient is not finite")
+    last = {k: out[k] for k in ("disp_fluid", "x", "tip_disp")}
+    del outs, out, o
+    t_sweeps, t_k4t, k4t_err, witness = check_fsi_kernels(f, err, last)
+    res = dict(witness=witness, build_s=t_build, first_s=t_first, warm_s=warm,
+               warm_median_s=statistics.median(warm), stages_s=stages,
+               peak_gib=peak / 2**30, launches=launches, stats=stats,
+               calls=calls, n_cells=f["n_cells"], n_dofs=f["n_dofs"],
+               nb=tpl.nb, B=tpl.B, **first)
+    del f
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("mid", "mid_f64", "rung", "rung_f64"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[key], f = fsi_vs_jax(key, FSI_GATES.get(key)
+                                 or spread_bars(key))
+        if key == "rung":
+            res[key]["residual_vs_jax"] = fsi_residual_parity(f)
+        del f
+    return res, t_sweeps, t_k4t, k4t_err
+
+
+def phase_fsi_small():
+    """bench_scale.py's small rung (16, 24) / (4, 8) against the JAX
+    package's values within 10x its own spread between its f32-stored,
+    f64-stored and mixed-inverse factors (shell_parity's rule, at least
+    1e-12); the card against CPU tensors at (4, 6) in the CPU tests'
+    anchor-solver path, within 10x the JAX package's spread there."""
+    r, _ = fsi_vs_jax("small", spread_bars("small"))
+    c = FSI_SMALL_CPU
+    w = fsi_oracle("jit_rtol")
+    p = fsi_oracle("jit_rtol_mixed")
+    vals = {}
+    for dev in (DEVICE, "cpu"):
+        f = fsi_build(c, dev)
+        o = f["solve_with_grad"](f["t0"], rounds=c["rounds"])
+        vals[dev] = {"tip": float(o["tip_disp"]),
+                     "objective": float(o["objective"]),
+                     "grad": o["grad_thickness"].cpu().numpy()}
+    b = {k: 10 * max(ROUNDING, float(
+        np.linalg.norm(np.asarray(p[k]) - w[k]) / np.linalg.norm(w[k])))
+        for k in ("tip", "objective", "grad")}
+    rc = {k: float(np.linalg.norm(np.asarray(vals[DEVICE][k])
+                                  - vals["cpu"][k])
+                   / np.linalg.norm(vals["cpu"][k])) for k in b}
+    print(f"  (4, 6) card vs CPU tensors: {rc} (bars {b}, 10x the JAX "
+          "package's own spread)")
+    if not all(rc[k] <= b[k] for k in b):
+        raise AssertionError("fsi (4, 6): card and CPU differ")
+    r["card_vs_cpu"] = rc
+    return r
+
+
 def kernel_entry(key, name, source, replaces, launches, err, t):
     """One kernel's entry of the kernels line.  ms, plain_ms and
     library_ms are medians of CUDA-event timings of single calls; the
@@ -2344,14 +2815,25 @@ def main():
         paths[f"shell_{key}"] = shell[key]["launches"]
     paths["shell_modal"] = modal["launches"]
     paths["shell_module"] = module["launches"]
+    fsi, t_fsi, t_k4t_fsi, k4t_fsi_err = timed_phase("fsi", seconds,
+                                                     phase_fsi, err)
+    fsi_small = timed_phase("fsi_small", seconds, phase_fsi_small)
+    print("fsi summary: " + json.dumps(dict(fsi, small=fsi_small)))
+    fsi_paths = {"fsi_anchor": fsi["launches"],
+                 **{f"fsi_{k}": fsi[k]["launches"]
+                    for k in ("mid", "mid_f64", "rung", "rung_f64")},
+                 "fsi_small": fsi_small["launches"]}
+    paths.update(fsi_paths)
     print(f"kernels vs plain on the steps' factors (refine 1 and 4, "
-          f"unstructured, W1 weak, shell): max |kernel - plain| K1 "
+          f"unstructured, W1 weak, shell, FSI anchor): max |kernel - "
+          f"plain| K1 "
           f"{err['K1']:.3e}, K2 {err['K2']:.3e}")
     # K4/K4T: max_abs_err over the nel=260 W1 operator and the Jacobians
     # of W1 weak, W2 and W4
     for k in ("K4", "K4T"):
         err_spmv[k] = max([err_spmv[k]] + [slice_c[p]["err"][k] for p in
                                            ("w1_weak", "w2", "topopt")])
+    err_spmv["K4T"] = max(err_spmv["K4T"], k4t_fsi_err)
     print("motor summary: " + json.dumps({
         "refine4_refactor3": r4b, "refine1": r1b, "lu_basis": lb,
         "eager_model": eager, "unstructured": un}))
@@ -2364,7 +2846,8 @@ def main():
                      device_ms=t[f"{k}_device"],
                      plain_device_ms=t[f"{k}_plain_device"],
                      library_device_ms=None, bound=t[f"{k}_bound"])),
-        shapes=[sweep_shape(k, ts) for ts in [t] + t4 + [t_weak] + t_shell],
+        shapes=[sweep_shape(k, ts)
+                for ts in [t] + t4 + [t_weak] + t_shell + [t_fsi]],
         launches_by_path=dict({p: n[k] for p, n in paths.items()},
                               w1_weak=slice_c["w1_weak"]["launches"][k]))
         for k, name, line in (("K1", "bt_fwd_sweep", 60),
@@ -2382,6 +2865,16 @@ def main():
         row["launches_by_path"] = dict(
             w1=w1_launches[k], **{p: slice_c[p]["launches"][k]
                                   for p in ("w1_weak", "w2", "topopt")})
+    # K4T: the FSI adjoint's Fm^T products, and its times at Fm's shape
+    rows[4]["launches_by_path"].update(
+        {p: n["K4T"] for p, n in fsi_paths.items()})
+    rows[4]["shapes"] = [dict(
+        t_k4t_fsi["shape"], ms=t_k4t_fsi["ms"],
+        device_ms=t_k4t_fsi["device_ms"], plain_ms=t_k4t_fsi["plain_ms"],
+        plain_device_ms=t_k4t_fsi["plain_device_ms"],
+        library_ms=t_k4t_fsi["library_ms"],
+        library_device_ms=t_k4t_fsi["library_device_ms"],
+        bound_ms=t_k4t_fsi["bound"][0], bound_by=t_k4t_fsi["bound"][1])]
     # K5: its top-level numbers are the W1 stiffness band's; "bands" adds
     # the other nel=260 bands; bound_ms is on the band's nonzeros with x and
     # y, plan_bound_ms on what K5 reads (plan, x, y), dense_bound_ms on the

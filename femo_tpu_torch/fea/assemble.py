@@ -26,8 +26,12 @@ tangential gradients K = G^{-1} J^T with G = J^T J, expose the geometry
 Jacobian to cell integrands as `g.J` (local frames), and give the edges
 of a 2D cell in 3D their in-plane outward normal t x (J0 x J1).
 
+`chunk=` on residual and matrix assembly runs the entity loop in slices
+(every domain; the JAX package chunks cell terms, and exterior facets in
+matrices).
+
 Not ported (raise NotImplementedError): facet terms of 3D cells (tets,
-and the hex facets' dihedral variants), and the chunked entity loop.
+and the hex facets' dihedral variants).
 """
 
 from __future__ import annotations
@@ -485,17 +489,40 @@ class _Term:
         return {n: (values[n] if n in g else values[n][self.gdofs0[n]])
                 for n in values}
 
-    def _vmapped(self, fn, values, args=None):
+    def _vmapped(self, fn, values, args=None, chunk: int | None = None):
         """vmap fn(locals, *entity args) over the entities: fields map
         over dim 0, globals broadcast.  args: the entity data, by default
         the term's own (`_entity_args`); shape derivatives pass data made
-        from traced coordinates."""
+        from traced coordinates.
+
+        chunk: run the same vmapped fn on consecutive slices of `chunk`
+        entities and concatenate, which bounds the intermediates of a
+        whole-mesh vmap (the jacfwd temporaries of 10^5 shell cells) to
+        chunk / ne of theirs.  The last slice is padded to `chunk` with
+        copies of the last entity (their results dropped), so every call
+        has one batch size.  Each entity's arithmetic is that of the
+        whole-mesh vmap; the bits are too as long as no batch falls
+        below 8 entities (on the CPU torch's vectorized kernels round a
+        batch of fewer than 8 otherwise), so pass chunk >= 8."""
         in_locals = {n: (None if n in self.form.global_names else 0)
                      for n in values}
         args = self._entity_args() if args is None else args
+        locals_ = self.gather_locals(values)
+        vf = vmap(fn, in_dims=(in_locals,) + (0,) * len(args))
+        ne = self.n_ent
         with integrand_device(self.form.device):
-            return vmap(fn, in_dims=(in_locals,) + (0,) * len(args))(
-                self.gather_locals(values), *args)
+            if chunk is None or ne <= chunk:
+                return vf(locals_, *args)
+            dev = self.form.device
+            idx = torch.arange(-(-ne // chunk) * chunk, device=dev).clamp_(
+                max=ne - 1)
+            outs = []
+            for s in range(0, ne, chunk):
+                sel = idx[s:s + chunk]
+                outs.append(vf({n: v if in_locals[n] is None else v[sel]
+                                for n, v in locals_.items()},
+                               *[a[sel] for a in args]))
+            return torch.cat(outs)[:ne]
 
     def _rows(self, name):
         if self.domain == "interior_facet":
@@ -527,17 +554,18 @@ class _Term:
 
     def residual_contrib(self, values: dict, test_name: str,
                          chunk: int | None = None):
-        """Flat contributions, in the order of host_rows(test_name)."""
-        if chunk is not None:
-            raise NotImplementedError("chunked assembly is not ported")
+        """Flat contributions, in the order of host_rows(test_name);
+        `chunk` entities at a time when it is set (`_vmapped`)."""
         kern = self.make_entity_kernel(test_name, list(values))
-        return self._vmapped(kern, values).reshape(-1)
+        return self._vmapped(kern, values, chunk=chunk).reshape(-1)
 
     def matrix_blocks(self, values: dict, test_name: str, wrt: str,
                       chunk: int | None = None):
-        """Element-matrix block: (A (ne, nr, nc), rows, cols)."""
-        if chunk is not None:
-            raise NotImplementedError("chunked assembly is not ported")
+        """Element-matrix block: (A (ne, nr, nc), rows, cols); `chunk`
+        entities at a time when it is set (`_vmapped`).  With chunk set
+        the JAX package returns A flat, (ne, nr*nc), against the padding
+        of XLA's tiled layouts; here A keeps its (ne, nr, nc) shape,
+        which every consumer reads."""
         kern = self.make_entity_kernel(test_name, list(values))
 
         def per_ent(locals_e, *args_e):
@@ -546,7 +574,7 @@ class _Term:
 
             return jacfwd(res)(locals_e[wrt])
 
-        Ae = self._vmapped(per_ent, values)
+        Ae = self._vmapped(per_ent, values, chunk=chunk)
         if self.domain == "interior_facet":
             ne = Ae.shape[0]  # (ne, 2, nr, 2, nc)
             Ae = Ae.reshape(ne, Ae.shape[1] * Ae.shape[2], -1)
@@ -688,7 +716,10 @@ class CompiledForm:
         vals = {n: values[n] for n in self.all_names}
         return sum(t.scalar(vals) for t in self.terms)
 
-    def vector(self, values: dict) -> torch.Tensor:
+    def vector(self, values: dict, chunk: int | None = None
+               ) -> torch.Tensor:
+        """The assembled residual vector; `chunk` entities at a time
+        when it is set (the same bits)."""
         if self.form.test is None:
             raise ValueError("vector assembly needs a test space")
         vals = {k: values[k] for k in self.all_names}
@@ -698,13 +729,15 @@ class CompiledForm:
             self._vector_table = OwnerTable(
                 rows, len(rows), self.form.test.n_dofs, device=self.device)
         return self._vector_table.sum(torch.cat(
-            [t.residual_contrib(vals, "__test__") for t in self.terms]))
+            [t.residual_contrib(vals, "__test__", chunk)
+             for t in self.terms]))
 
-    def matrix(self, values: dict, wrt: str) -> ElementMatrix:
+    def matrix(self, values: dict, wrt: str,
+               chunk: int | None = None) -> ElementMatrix:
         if self.form.test is None:
             raise ValueError("matrix assembly needs a test space")
         vals = {k: values[k] for k in self.all_names}
-        blocks = [MatBlock(*t.matrix_blocks(vals, "__test__", wrt),
+        blocks = [MatBlock(*t.matrix_blocks(vals, "__test__", wrt, chunk),
                            plan=t.spmv_plan("__test__", wrt))
                   for t in self.terms]
         ncols = self.form.coeffs[wrt].space.n_dofs

@@ -95,11 +95,14 @@ class CompositeState:
         vals.update(self.split(x))  # state fields always win
         return vals
 
-    def residual(self, x, inputs: dict | None = None):
+    def residual(self, x, inputs: dict | None = None,
+                 chunk: int | None = None):
+        """The stacked residual; `chunk` entities at a time when it is set
+        (CompiledForm.vector)."""
         vals = self._values(x, inputs or {})
         return torch.cat([
             self.cforms[name].vector(
-                {k: vals[k] for k in self.cforms[name].all_names})
+                {k: vals[k] for k in self.cforms[name].all_names}, chunk)
             for name in self.names])
 
     def _pairs(self):
@@ -126,14 +129,16 @@ class CompositeState:
             self._layout = lay
         return self._layout
 
-    def jacobian_blocks(self, x, inputs: dict | None = None):
-        """[(A_e, rows, cols), ...] of the composite Jacobian."""
+    def jacobian_blocks(self, x, inputs: dict | None = None,
+                        chunk: int | None = None):
+        """[(A_e, rows, cols), ...] of the composite Jacobian; `chunk`
+        entities at a time when it is set."""
         vals = self._values(x, inputs or {})
         out = []
         for r, c, t, rows, cols, _ in self.layout():
             cf = self.cforms[r]
             A, _, _ = t.matrix_blocks({k: vals[k] for k in cf.all_names},
-                                      "__test__", c)
+                                      "__test__", c, chunk)
             out.append((A, rows, cols))
         return out
 

@@ -33,6 +33,8 @@ converged state plus a VJP of the residual with respect to the inputs.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import warnings
 from typing import Callable
 
@@ -149,11 +151,31 @@ class ImplicitSolveOp:
         return self._solve(inputs, u0.detach())
 
 
+_mode = threading.local()  # per thread, as torch's grad mode
+
+
+@contextlib.contextmanager
+def repeated_backward():
+    """Inside (this thread): the IFT solves built keep their saved state
+    after a backward, so a retained graph through them can run backward
+    again (the fixed point's adjoint takes one vector-Jacobian product of
+    the same pass per iteration).  The state then lives as long as the
+    graph."""
+    prev = getattr(_mode, "repeat", False)
+    _mode.repeat = True
+    try:
+        yield
+    finally:
+        _mode.repeat = prev
+
+
 def _ift_solve(forward, backward):
     """solve(inputs: dict, u0) -> u as a `torch.autograd.Function`:
     forward(inputs, u0) -> (u, saved) runs without autograd, and
     backward(u, inputs, saved, ubar) -> dict of input cotangents is the
-    IFT adjoint; u0 gets a zero gradient."""
+    IFT adjoint; u0 gets a zero gradient.  `saved` (a factor, often GBs)
+    is freed at the first backward, unless the solve was built inside
+    `repeated_backward()`."""
 
     class _Solve(torch.autograd.Function):
         """(keys, u0, *input tensors in the order of keys) -> u."""
@@ -161,7 +183,7 @@ def _ift_solve(forward, backward):
         @staticmethod
         def forward(ctx, keys, u0, *vals):
             u, ctx.extra = forward(dict(zip(keys, vals)), u0)
-            ctx.keys = keys
+            ctx.keys, ctx.repeat = keys, getattr(_mode, "repeat", False)
             ctx.save_for_backward(u, *vals)
             return u
 
@@ -169,7 +191,8 @@ def _ift_solve(forward, backward):
         def backward(ctx, ubar):
             u, *vals = ctx.saved_tensors
             pbar = backward(u, dict(zip(ctx.keys, vals)), ctx.extra, ubar)
-            ctx.extra = None  # one backward per forward
+            if not ctx.repeat:
+                ctx.extra = None  # one backward per forward
             return (None, torch.zeros_like(u)) + tuple(
                 pbar[k] for k in ctx.keys)
 

@@ -27,8 +27,13 @@ matrix has bandwidth b; with block size B >= b (rounded up to a multiple of
 * BlockTridiagFactorization: the `Factorization` adapter (solve, solve_t)
   of the `block_thomas` and `*_bt` LinearSolver backends.
 
-Not ported (the FSI slice): reduced-precision sweeps, cyclic reduction,
-the chunked factor and `pcg_tol`.
+* pcg_fixed / pcg_tol: preconditioned CG polish, a fixed count of
+  iterations (no host sync) or to a tolerance (one host read of the
+  residual norm per iteration).
+
+Not ported: reduced-precision sweeps and cyclic reduction (ROADMAP slice
+D2b); the chunked factor, which exists for the TPU runtime (one factor
+loop serves every size here).
 """
 
 from __future__ import annotations
@@ -400,3 +405,43 @@ def pcg_fixed(mat: BlockTridiagonalMatrix, fac: BlockThomasFactor | None,
         p = z + beta * p
         rz = rz_new
     return x
+
+
+def pcg_tol(mat: BlockTridiagonalMatrix, fac: BlockThomasFactor | None,
+            b, rtol: float = 1e-10, maxiter: int = 100, x0=None,
+            transpose: bool = False, M=None, atol: float = 0.0):
+    """Preconditioned CG to a tolerance: iterate until ||r||_2 <=
+    max(rtol ||b||_2, atol) or `maxiter` iterations, the converged-solve
+    semantics of the reference (SNES atol/rtol 1e-13,
+    utils_dolfinx.py:377-379).  A low-precision factor (f32 storage)
+    then changes the iteration count, not the answer.
+
+    The convergence test reads ||r|| on the host once per iteration (and
+    once before the first): one device sync each, where the JAX package
+    tests it inside a `lax.while_loop`.  Returns (x, iterations (int),
+    relative residual ||r|| / ||b|| (a 0-d tensor)).  Reaching maxiter
+    is no error: the count says so.  Preconditioner applications: one
+    before the loop and one per iteration."""
+    mv = mat.matvec_t if transpose else mat.matvec
+    M = M or fac.solve
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - mv(x)
+    z = M(r)
+    p = z
+    rz = torch.dot(r, z)
+    bnorm = torch.linalg.norm(b)
+    stop = max(rtol * float(bnorm), atol)
+    k = 0
+    while k < maxiter and float(torch.linalg.norm(r)) > stop:
+        Ap = mv(p)
+        denom = torch.dot(p, Ap)
+        alpha = rz / torch.where(denom == 0, 1.0, denom)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = torch.dot(r, z)
+        beta = rz_new / torch.where(rz == 0, 1.0, rz)
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    return x, k, torch.linalg.norm(r) / torch.where(bnorm == 0, 1.0, bnorm)

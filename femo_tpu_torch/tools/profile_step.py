@@ -1,9 +1,10 @@
-"""Where the time of the port's motor step, W1 optimization step and W6
-shell compliance step goes, on one CUDA card.
+"""Where the time of the port's motor step, W1 optimization step, W6
+shell compliance step and W7 FSI optimization iteration goes, on one CUDA
+card.
 
     python -m femo_tpu_torch.tools.profile_step [--refine 1 4] [--w1 260]
-        [--shell a b] [--refactor-every N] [--freeze-operator] [--steps 5]
-        [--out FILE]
+        [--shell a b] [--fsi] [--refactor-every N]
+        [--freeze-operator] [--steps 5] [--out FILE]
 
 For each refine level the motor step is built in f64 in the
 configuration of the f64 oracle (experiments/motor_latency_oracle.json),
@@ -17,7 +18,9 @@ objective l2_functional, `Simulator.run()` once) and its step is one
 400), split_programs=True, ...)` is built in f64, "a" with pcg_iters=2,
 "b" (the JAX package's TPU production configuration) with f32 factor
 storage and pcg_iters=4, and its step is one call (compliance and its
-thickness gradient).  Each step is
+thickness gradient); with `--fsi` the FSI anchor (FSI_ANCHOR: 107,520
+cells, 927,402 dofs, the JAX package's anchor solver) is built in f64
+and its step is one `solve_with_grad`.  Each step is
 run once to warm, timed over `--steps` untraced warm steps (host clock,
 ending in a device sync), then traced for one warm step with
 torch.profiler (CPU + CUDA).  During the traced step the port's layers
@@ -55,12 +58,14 @@ import torch
 from torch.autograd import DeviceType
 
 from .. import set_precision
-from ..fea.assemble import CompiledForm
+from ..fea.assemble import CompiledForm, ElementMatrix
 from ..graph.model import FEAModel
 from ..graph.simulator import Simulator
 from ..fea.composite import CompositeState
 from ..models.motor.model import build_motor_jit_step
+from ..models import fsi
 from ..models.shell import build_shell_jit_step
+from ..models.vlm import VLM
 from ..models.poisson import build_fea
 from ..ops import bt_sweeps, spmv
 from ..ops.block_tridiag import (
@@ -109,6 +114,31 @@ SHELL_LAYERS = {
     "sweeps.K1": (bt_sweeps, "fwd_sweep_cuda"),
     "sweeps.K2": (bt_sweeps, "bwd_sweep_cuda"),
 }
+# the FSI iteration's layers (models/fsi.py): the two halves of the
+# factor, the VLM, the right-hand-side assembly, the block-Thomas solves
+# (K1 + K2 each), the PCG polish (holding its solves) and the adjoint
+FSI_LAYERS = {
+    "fsi.fill": (fsi._BTPrograms, "fill"),
+    "fsi.factor_core": (fsi._BTPrograms, "factor_core"),
+    "fsi.gs": (fsi._FSIStep, "gs"),
+    "fsi.finalize": (fsi._FSIStep, "finalize"),
+    "fsi.vlm": (VLM, "solve"),
+    "fsi.rhs": (fsi._FSIStep, "_rhs"),
+    "fsi.sweeps": (BlockThomasFactor, "solve"),
+    "fsi.pcg": (fsi._FSIStep, "_polish"),
+    "fsi.adjoint": (fsi._FSIStep, "adjoint"),
+    "bt.matvec": (BlockTridiagonalMatrix, "matvec"),
+    "assemble.rmatvec": (ElementMatrix, "rmatvec"),
+    "sweeps.K1": (bt_sweeps, "fwd_sweep_cuda"),
+    "sweeps.K2": (bt_sweeps, "bwd_sweep_cuda"),
+    "spmv.K4T": (spmv, "element_rspmv_cuda"),
+}
+# the FSI anchor: the reference's eVTOL wing class in the JAX package's
+# anchor solver configuration (bench_scale.py), 5 rounds of 4 passes
+FSI_ANCHOR = dict(n_shell=(4, 13440), n_vlm=(4, 32), span=30.0,
+                  thickness=0.05, gs_inner=4, factor_store_dtype="float32",
+                  pcg_rtol=1e-7, pcg_maxiter=10)
+FSI_ROUNDS = 5
 SHELL_CONFIGS = {
     "a": dict(n_shell=(24, 400), split_programs=True, pcg_iters=2),
     "b": dict(n_shell=(24, 400), split_programs=True, spd=True,
@@ -117,16 +147,22 @@ SHELL_CONFIGS = {
 SWEEP_BLOCKS = {"sweeps.K1": 2, "sweeps.K2": 1}  # (B,B) blocks per step
 
 
-def _ranged(name, fn, calls, streamed):
+def _ranged(name, fn, lr):
     blocks = SWEEP_BLOCKS.get(name)
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
+        if lr.sync:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
         with torch.profiler.record_function(name):
             out = fn(*args, **kwargs)
-        calls[name] += 1
+        if lr.sync:
+            torch.cuda.synchronize()
+            lr.seconds[name] += time.perf_counter() - t0
+        lr.calls[name] += 1
         if blocks:
-            streamed[name] += blocks * args[0].numel() * args[0].itemsize
+            lr.streamed[name] += blocks * args[0].numel() * args[0].itemsize
         return out
     return wrapped
 
@@ -134,18 +170,22 @@ def _ranged(name, fn, calls, streamed):
 class layer_ranges:
     """Context: run each layer of `layers` (LAYERS, the motor's, unless
     given) inside a record_function range of its name, count its calls,
-    and count the bytes of (B,B) blocks the sweeps stream."""
+    and count the bytes of (B,B) blocks the sweeps stream.  With
+    sync=True (CUDA) each call is also bracketed by device syncs and its
+    wall seconds summed into `seconds` (a nested layer's inside its
+    parent's)."""
 
-    def __init__(self, layers=None):
+    def __init__(self, layers=None, sync=False):
         self.layers = LAYERS if layers is None else layers
+        self.sync = sync
 
     def __enter__(self):
         self.saved = {k: getattr(o, a) for k, (o, a) in self.layers.items()}
         self.calls = {k: 0 for k in self.layers}
+        self.seconds = {k: 0.0 for k in self.layers}
         self.streamed = {k: 0 for k in SWEEP_BLOCKS}
         for k, (o, a) in self.layers.items():
-            setattr(o, a, _ranged(k, self.saved[k], self.calls,
-                                  self.streamed))
+            setattr(o, a, _ranged(k, self.saved[k], self))
         return self
 
     def __exit__(self, *exc):
@@ -223,31 +263,30 @@ def trace_step(step, steps, layers):
             torch.profiler.profile(activities=acts) as p:
         t_traced, out = _sync_time(step)
     peak = torch.cuda.max_memory_allocated()
-    events = p.events()
 
-    span = lambda e: (e.time_range.start, e.time_range.end)
-    dev, annotated = [], {}
-    for e in events:
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if e.name in layers or getattr(e, "is_user_annotation", False):
-            annotated.setdefault(e.name, []).append(span(e))
-        else:
-            dev.append(e)
-    busy_us = _union_us([span(e) for e in dev])
-    kernels = {}
-    for e in dev:
-        k = kernels.setdefault(e.name, [0, 0.0])
-        k[0] += 1
-        k[1] += e.time_range.elapsed_us()
-    lays = {}
-    for e in events:
-        if e.name in layers and e.device_type == DeviceType.CPU:
-            lay = lays.setdefault(e.name, [0, 0.0, 0.0])
+    # the profiler's raw events: building its FunctionEvent tree takes
+    # minutes for the 10^6 events of an FSI anchor iteration
+    dev, annotated, lays = [], {}, {}
+    for e in p.profiler.kineto_results.events():
+        name = e.name()
+        span = (e.start_ns() / 1e3, e.end_ns() / 1e3)
+        if e.device_type() == DeviceType.CUDA:
+            if name in layers or e.is_user_annotation():
+                annotated.setdefault(name, []).append(span)
+            else:
+                dev.append((name, span))
+        elif name in layers and e.device_type() == DeviceType.CPU:
+            lay = lays.setdefault(name, [0, 0.0, 0.0])
             lay[0] += 1
-            lay[1] += e.cpu_time_total
+            lay[1] += span[1] - span[0]
+    busy_us = _union_us([sp for _, sp in dev])
+    kernels = {}
+    for name, (a, b) in dev:
+        k = kernels.setdefault(name, [0, 0.0])
+        k[0] += 1
+        k[1] += b - a
     for name, lay in lays.items():
-        lay[2] = _inside_us([span(e) for e in dev], annotated.get(name, []))
+        lay[2] = _inside_us([sp for _, sp in dev], annotated.get(name, []))
     dev_total_us = sum(v[1] for v in kernels.values())
     return {
         "first_step_s": t_first,
@@ -331,6 +370,31 @@ def profile_shell(name, steps):
     return r
 
 
+def profile_fsi(steps):
+    """The FSI anchor's optimization iteration, `solve_with_grad` (5 rounds
+    of 4 Gauss-Seidel passes, the 24-pass coupled adjoint)."""
+    cfg = FSI_ANCHOR
+    t_build, f = _sync_time(lambda: fsi.build_fsi_jit_step(device="cuda",
+                                                           **cfg))
+    stats = f["stats"]
+    r, out = trace_step(
+        lambda: f["solve_with_grad"](f["t0"], rounds=FSI_ROUNDS), steps,
+        FSI_LAYERS)
+    _sweep_rates(r)
+    n_calls = 2 + steps  # warm-up, the timed steps and the traced one
+    r.update(name=f"fsi {cfg}", config={k: list(v) if isinstance(v, tuple)
+                                        else v for k, v in cfg.items()},
+             cells=f["n_cells"], dofs=f["n_dofs"],
+             bt=dict(nb=f["tpl"].nb, B=f["tpl"].B),
+             loss=float(out["tip_disp"]),
+             objective=float(out["objective"]),
+             rel_delta=float(out["rel_delta"]),
+             adj_delta=float(out["adj_delta"]), build_s=t_build,
+             solves_per_step=stats["solves"] / n_calls,
+             pcg_iters_per_step=len(stats["pcg_iters"]) / n_calls)
+    return r
+
+
 def _summary(r, copy_gbs):
     print(f"{r['name']} ({r['cells']} cells): loss "
           f"{r['loss']!r}; warm step median {r['warm_step_median_s']:.4f} s "
@@ -362,6 +426,8 @@ def main(argv=None):
     ap.add_argument("--shell", nargs="*", default=[],
                     choices=sorted(SHELL_CONFIGS),
                     help="shell step configurations at n_shell=(24, 400)")
+    ap.add_argument("--fsi", action="store_true",
+                    help="the FSI anchor's optimization iteration")
     ap.add_argument("--refactor-every", type=int, default=1,
                     help="motor step: factor every N Newton iterations")
     ap.add_argument("--freeze-operator", action="store_true",
@@ -389,7 +455,8 @@ def main(argv=None):
              for v in args.refine]
             + [lambda v=v: profile_w1(v, args.steps) for v in args.w1]
             + [lambda v=v: profile_shell(v, args.steps)
-               for v in args.shell])
+               for v in args.shell]
+            + ([lambda: profile_fsi(args.steps)] if args.fsi else []))
     for run in runs:
         r = run()
         _summary(r, copy_gbs)

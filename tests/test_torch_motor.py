@@ -221,6 +221,10 @@ def test_port_imports_no_jax():
         "import femo_tpu_torch.mesh.gmsh_io\n"
         "import femo_tpu_torch.fea.project\n"
         "import femo_tpu_torch.convert\n"
+        "import femo_tpu_torch.models.vlm\n"
+        "import femo_tpu_torch.graph.fixed_point\n"
+        "import femo_tpu_torch.models.fsi\n"
+        "import femo_tpu_torch.tools.profile_step\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'femo_tpu.')) or m == 'femo_tpu']\n"
         "assert not bad, bad\n")

@@ -312,7 +312,8 @@ def test_w1_modules_import_no_jax():
     code = ("import sys\n"
             "import femo_tpu_torch.models.poisson, "
             "femo_tpu_torch.graph.simulator, femo_tpu_torch.graph.optimizer, "
-            "femo_tpu_torch.fea.utils, femo_tpu_torch.ops.spmv\n"
+            "femo_tpu_torch.fea.utils, femo_tpu_torch.ops.spmv, "
+            "femo_tpu_torch.models.fsi\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'femo_tpu.')) or m == 'femo_tpu']\n"
             "assert not bad, bad\n")
