@@ -38,7 +38,13 @@ non-zero without the final line:
    K3/K5 counts reset just before it; times of each kernel, its plain
    version and torch.sparse.mm on the CSR, beside the bound: CUDA events
    around single calls, and the profiler's device time per call, which
-   leaves out the host time between launches.  K5 is timed on all four
+   leaves out the host time between launches.  K4/K4T in both of their
+   hand-written designs (ops/spmv.py::element_design) on the W1 operator
+   and on synthetic patterns (no element, a 90 x 90 block whose tile
+   needs more than 48 KB of shared memory, A_e off a 16-byte boundary),
+   f64 and f32, each block alone and summed twice bit for bit; timed per
+   design beside torch.sparse.mm on the CSR and on its transpose, with a
+   burst of back-to-back calls besides.  K5 is timed on all four
    nel=260 bands, beside the bound on the band's nonzeros (with x and y),
    the bound on what it reads and the dense band's bound, with the band's
    nonzero count, its plan's segments, bytes and build time.
@@ -96,10 +102,11 @@ non-zero without the final line:
    In phases 14, 15 and 18 the K4/K4T counts are set to 0 just before
    the path and read just after, and must equal BiCGStab's matvecs.
    After each of these paths, K4/K4T are held against their plain
-   versions (f64 1e-14) on the path's own Jacobians: every element block
-   alone (W4's 8x8 quad-elasticity blocks too), then the matrix's
-   matvec/rmatvec, whose later blocks add into the first block's output,
-   twice bit for bit; in phase 14 K1/K2 against plain (f64 1e-12) and
+   versions in both designs (f64 1e-14, f32 1e-6) on the path's own
+   Jacobians: every element block alone (W4's 8x8 quad-elasticity blocks
+   too), then the blocks summed, later blocks adding into the first
+   block's output, twice bit for bit, and matvec/rmatvec equal to that
+   sum; K4/K4T timed on W4's 8x8 blocks as on W1's; in phase 14 K1/K2 against plain (f64 1e-12) and
    timed on the block-Thomas factors that preconditioned the solves.
 20. shell: the W6 compliance step build_shell_jit_step(n_shell=(24, 400))
    (19,200 cells, 147,822 dofs, nb=289 blocks of B=512) in f64, in the
@@ -138,7 +145,7 @@ non-zero without the final line:
    24-pass coupled adjoint): the build (the host template), the first
    solve_with_grad with K1/K2/K4T counted (K1 and K2 once per inner solve
    and per preconditioner application that pcg_tol reports, K4T once per
-   adjoint pass), the median of 3 warm ones with the stage seconds of the
+   adjoint pass), the median of 2 warm ones with the stage seconds of the
    last (fill, factor core, Gauss-Seidel, finalize, adjoint), equal bits
    between warm calls, peak device memory, rel_delta, adj_delta and the
    PCG iteration counts; force conservation (1e-13); the tip against
@@ -147,23 +154,26 @@ non-zero without the final line:
    and refined with longdouble residuals (FSI_GATES' anchor_solve);
    K1/K2 against plain on the anchor's factor (10x the plain solve's
    reordered-sum spread, step residuals 1e-12) and timed at (7246, 128);
-   K4T against plain on the force-load operator Fm (107,520 rectangular
-   18 x 9 blocks; 1e-14) and timed beside the transposed CSR product;
+   K4/K4T against plain on the force-load operator Fm (107,520
+   rectangular 18 x 9 blocks; both designs, f64 1e-14, f32 1e-6) and
+   timed beside torch.sparse.mm on its CSR and on the transposed CSR;
+   the anchor again with its factor stored in f64, one solve_with_grad
+   counted, against the JAX package's anchor entry (tip and objective
+   2e-2, gradient 4e-2: FSI_GATES' anchor_f64);
    then the same wing against the JAX package's values
    (oracles/fsi_oracle.npz) at (4, 6720) (53,760 cells; f32 factor
    storage: tip and objective; f64 storage: tip, objective and
    gradient) and at (4, 1680) (13,440 cells, chunked; f32 storage within
    10x the JAX package's own spread, f64 storage at fixed bars, and the
-   residual at a random state, 1e-12).  The JAX package has no anchor
-   entry; its TPU records put the anchor tip at 17.66-17.69 (PERF.md
-   §6).
+   residual at a random state, 1e-12).
 24. fsi_small: bench_scale.py's small rung (16, 24) / (4, 8) against the
    oracle within 10x the JAX package's own spread between two of its
    factors, and the card against CPU tensors at (4, 6).
 
 Each phase prints its wall seconds.  It prints a JSON line describing
 the kernels (K1/K2 with their launches on every motor path, the shell's
-and FSI's, K4/K4T on W1, W1 with weak BCs, W2 and W4, K4T on FSI's Fm),
+and FSI's, K4/K4T on W1, W1 with weak BCs, W2 and W4 and K4T on FSI's
+Fm, with K4/K4T's times at W1's, W4's and Fm's shapes),
 and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -194,7 +204,8 @@ from femo_tpu_torch.models.motor.model import (
 from femo_tpu_torch.models.motor.unstructured import write_motor_msh
 from femo_tpu_torch.models.motor.pde import source_tables
 from femo_tpu_torch.entry import entry
-from femo_tpu_torch.fea.assemble import assemble_matrix, compile_form
+from femo_tpu_torch.fea.assemble import (
+    ElementMatrix, MatBlock, assemble_matrix, compile_form)
 from femo_tpu_torch.fea.fea import FEA
 from femo_tpu_torch.fea.forms import FormDef, dot, ds, dx, grad
 from femo_tpu_torch.fea.shape import shape_gradient
@@ -1082,6 +1093,142 @@ def time_spmv(name, kernel, kern, plain, lib, nbytes, ops):
     return r
 
 
+# K4/K4T: the two hand-written designs (ops/spmv.py::element_design) and
+# the CUDA kernel that each launches once a call (design 1 also launches
+# owner_sum_kernel)
+K4_DESIGNS = (0, 1)
+K4_KERNEL = {0: "element_spmv_kernel", 1: "element_product_kernel"}
+BURST = 200
+
+
+def burst_ms(fn, n=BURST):
+    """One call's share of n back-to-back calls between two CUDA events:
+    the device time per call where the card is slower than the host's
+    enqueueing (K4T on Fm), the host's time per call where not."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def time_element(label, mat, seed):
+    """K4 and K4T (f64) on the largest element block of `mat` (W4's
+    Jacobian has a second block of 2 elements), in each design
+    (K4_DESIGNS), beside their plain versions and torch.sparse.mm on the
+    block's CSR and on its transpose: per direction the median of 50
+    CUDA-event timings of one call (ms), a burst of BURST calls over BURST
+    (burst_ms) and the profiler's device time per call (device_ms), by
+    design; the bound (bytes: A_e, rows, cols, x and y once; "bound",
+    with the operations); the share bound / device time of the design
+    element_design takes ("design"; of its burst time where the trace
+    was incomplete, "share_of" says which)."""
+    b = max(mat.blocks, key=lambda b: b.A.shape[0])
+    ne, nr, nc = b.A.shape
+    n_rows, n_cols = mat.shape
+    rng = np.random.default_rng(seed)
+    csr = ElementMatrix([b], n_rows, n_cols).to_scipy_csr()
+    nbytes = ne * nr * nc * 8 + ne * (nr + nc) * 4 + (n_rows + n_cols) * 8
+    bound = bound_ms(nbytes, 2 * ne * nr * nc, torch.float64)
+    out = dict(label=label, ne=ne, nr=nr, nc=nc, n_rows=n_rows,
+               n_cols=n_cols, csr_nnz=int(csr.nnz), nbytes=nbytes,
+               bound_ms=bound[0], bound_by=bound[1])
+    for k, n_in, lib_csr, kern, plain in (
+            ("K4", n_cols, csr, spmv.element_spmv_cuda,
+             lambda v: spmv.element_spmv_plain(b.A, b.rows, b.cols, v,
+                                               n_rows)),
+            ("K4T", n_rows, csr.T.tocsr(), spmv.element_rspmv_cuda,
+             lambda v: spmv.element_rspmv_plain(b.A, b.rows, b.cols, v,
+                                                n_cols))):
+        v = torch.as_tensor(rng.standard_normal(n_in), device="cuda")
+        pick = spmv.element_design(nr, nc, k == "K4T", 8)
+        L = torch_csr(lib_csr)
+        lib = lambda L=L, v=v: torch.sparse.mm(L, v[:, None])  # noqa: E731
+        check_rel(f"torch.sparse.mm vs {k} ({label})", lib()[:, 0],
+                  kern(b.A, b.plan, v), SPMV_TOL[torch.float64])
+        r = dict(bound=bound, design=pick,
+                 plain_ms=cuda_ms(lambda v=v: plain(v)),
+                 library_ms=cuda_ms(lib), library_burst_ms=burst_ms(lib),
+                 plain_device_ms=device_ms(lambda v=v: plain(v)),
+                 library_device_ms=device_ms(lib))
+        for d in K4_DESIGNS:
+            fn = lambda d=d, v=v: kern(b.A, b.plan, v, design=d)  # noqa
+            # the profiler has dropped the same launches of one kernel in
+            # every trace of 10 calls; a trace of 25 is tried before the
+            # time goes unmeasured
+            dev = (device_ms(fn, K4_KERNEL[d])
+                   or device_ms(fn, K4_KERNEL[d], reps=25, tries=2))
+            r[f"design{d}"] = dict(ms=cuda_ms(fn), burst_ms=burst_ms(fn),
+                                   device_ms=dev)
+        r.update(r[f"design{pick}"])
+        t = r["device_ms"] if r["device_ms"] is not None else r["burst_ms"]
+        r["share"] = bound[0] / t
+        r["share_of"] = ("device_ms" if r["device_ms"] is not None
+                         else "burst_ms")
+        print(f"  time {k} on {label} ({ne} {nr}x{nc} blocks, {n_rows} x "
+              f"{n_cols}), f64: "
+              + "; ".join(
+                  f"design {d}{' (taken)' if d == pick else ''} "
+                  f"{r[f'design{d}']['ms']:.4f} ms event, "
+                  f"{r[f'design{d}']['burst_ms']:.4f} ms in a burst of "
+                  f"{BURST}, device {fmt_ms(r[f'design{d}']['device_ms'])}"
+                  for d in K4_DESIGNS)
+              + f"; plain {r['plain_ms']:.4f} ms / device "
+              f"{fmt_ms(r['plain_device_ms'])}; torch.sparse.mm on the "
+              f"{'transposed ' if k == 'K4T' else ''}CSR ({csr.nnz} "
+              f"entries) {r['library_ms']:.4f} ms / burst "
+              f"{r['library_burst_ms']:.4f} ms / device "
+              f"{fmt_ms(r['library_device_ms'])}; bound {bound[0]:.4f} ms "
+              f"({nbytes / 1e6:.2f} MB), {100 * r['share']:.0f}% of it "
+              f"reached ({r['share_of']})")
+        out[k] = r
+    return out
+
+
+def k4_patterns():
+    """Synthetic element matrices for K4/K4T's edge cases, each one block
+    on the card: (ne, nr, nc) from no element to a 90 x 90 block whose
+    tile takes more than 48 KB of shared memory, a last tile cut short,
+    odd and even nc, rows and columns shared between elements, entries
+    numbered as nodes of bs components (bs 3: what design 1 gathers by
+    node), and A_e starting 8 bytes off a 16-byte boundary (offset 1: no
+    TMA copy)."""
+    rng = np.random.default_rng(21)
+    mats = []
+    for ne, nr, nc, n_rows, n_cols, bs, offset in (
+            (0, 3, 3, 5, 5, 1, 0), (1, 1, 1, 1, 1, 1, 0),
+            (7, 3, 3, 20, 20, 1, 0), (256, 3, 3, 100, 100, 1, 1),
+            (33, 8, 8, 90, 90, 1, 0), (29, 18, 9, 200, 50, 1, 1),
+            (61, 18, 9, 300, 90, 3, 0), (61, 18, 9, 300, 90, 3, 1),
+            (5, 2, 7, 9, 30, 1, 0), (3, 90, 90, 200, 200, 1, 0)):
+        rows, cols = (torch.as_tensor(np.array(
+            [bs * rng.choice(n // bs, k // bs, replace=False)[:, None]
+             + np.arange(bs) for _ in range(ne)],
+            np.int64).reshape(ne, k), device="cuda")
+            for n, k in ((n_rows, nr), (n_cols, nc)))
+        buf = torch.as_tensor(rng.standard_normal(ne * nr * nc + offset),
+                              device="cuda")
+        mats.append(ElementMatrix(
+            [MatBlock(buf[offset:].view(ne, nr, nc), rows, cols)], n_rows,
+            n_cols))
+    return mats
+
+
+def shape_row(t, k):
+    """K4's or K4T's numbers at one shape (time_element), for the kernels
+    line's `shapes`."""
+    r = t[k]
+    return dict({x: t[x] for x in ("label", "ne", "nr", "nc", "n_rows",
+                                   "n_cols", "csr_nnz", "bound_ms",
+                                   "bound_by")},
+                **{x: r[x] for x in r if x != "bound"})
+
+
 def time_k5(label, band, bw, plan, lib_csr, xp):
     """K5's times on one band (f64) beside three bounds: on the band's
     nonzeros with x and y (the bound of the function), on what K5 reads
@@ -1247,39 +1394,20 @@ def phase_spmv():
     if path != {"K3": cg_iters + 1 + 2, "K5": 1}:
         raise AssertionError(f"self-test launches {path}")
 
-    A_lib, At_lib = torch_csr(csr), torch_csr(csr.T.tocsr())
-    plain = {
-        "K4": lambda: spmv.element_spmv_plain(b0.A, b0.rows, b0.cols, x64,
-                                              n),
-        "K4T": lambda: spmv.element_rspmv_plain(b0.A, b0.rows, b0.cols,
-                                                x64, n),
-        "K3": lambda: spmv.ell_spmv_plain(ell.vals, ell.cols, x64),
-    }
-    kern = {
-        "K4": lambda: spmv.element_spmv_cuda(b0.A, b0.plan, x64),
-        "K4T": lambda: spmv.element_rspmv_cuda(b0.A, b0.plan, x64),
-        "K3": lambda: spmv.ell_spmv_cuda(ell.vals, ell.cols, x64),
-    }
-    lib = {
-        "K4": lambda: torch.sparse.mm(A_lib, x64[:, None]),
-        "K4T": lambda: torch.sparse.mm(At_lib, x64[:, None]),
-        "K3": lambda: torch.sparse.mm(A_lib, x64[:, None]),
-    }
-    vec = 2 * n * 8  # x read once, y written once
-    nbytes = {
-        "K4": ne * nr * nc * 8 + ne * (nr + nc) * 4 + vec,
-        "K3": ell.vals.numel() * (8 + 4) + vec,
-    }
-    nbytes["K4T"] = nbytes["K4"]
-    ops = {"K4": 2 * ne * nr * nc, "K4T": 2 * ne * nr * nc,
-           "K3": 2 * ell.vals.numel()}
+    A_lib = torch_csr(csr)
     saved = dict(spmv.launches)
-    kernel = {"K4": "element_spmv_kernel", "K4T": "element_spmv_kernel",
-              "K3": "ell_thread_kernel" if ell.vals.shape[1] <= 8
-              else "ell_warp_kernel"}  # csrc/spmv.cu's choice
-    t = {name: time_spmv(name, kernel[name], kern[name], plain[name],
-                         lib[name], nbytes[name], ops[name])
-         for name in ("K4", "K4T", "K3")}
+    err4 = check_element_matrices(f"W1 nel={W1_NEL} stiffness", [A])
+    err4e = check_element_matrices("synthetic patterns", k4_patterns())
+    for kern in ("K4", "K4T"):
+        err[kern] = max(err[kern], err4[kern], err4e[kern])
+    t = {"K3": time_spmv(
+        "K3", "ell_thread_kernel" if k <= 8 else "ell_warp_kernel",
+        lambda: spmv.ell_spmv_cuda(ell.vals, ell.cols, x64),
+        lambda: spmv.ell_spmv_plain(ell.vals, ell.cols, x64),
+        lambda: torch.sparse.mm(A_lib, x64[:, None]),
+        ell.vals.numel() * (8 + 4) + 2 * n * 8, 2 * ell.vals.numel())}
+    t["K4_shapes"] = [time_element(f"W1 nel={W1_NEL} stiffness", A, 12)]
+    t["K4"], t["K4T"] = t["K4_shapes"][0]["K4"], t["K4_shapes"][0]["K4T"]
     # K5 on the four nel=260 bands; the W1 stiffness band's numbers are
     # K5's in the kernels line
     t["K5_bands"] = [
@@ -1625,15 +1753,16 @@ def counted_solve_path(label, fn, fea, state):
 
 def check_element_matrices(label, mats):
     """K4/K4T on a path's own element matrices (the Jacobian of every
-    factorization that solved, or FSI's force-load operator) against their
-    plain versions, f64
-    SPMV_TOL: each element block alone (a block whose plain product is
-    exactly 0, as a load term's, must give exactly 0), then
-    matvec/rmatvec, where every block after the first adds into the
-    first's output (the kernel's accumulate mode), and a second
-    matvec/rmatvec bit for bit against the first.  Returns max |kernel -
-    plain| by kernel.  Called after the path's launches are read: these
-    launches count for no path."""
+    factorization that solved, W1's stiffness or FSI's force-load
+    operator) against their plain versions, in each design (K4_DESIGNS),
+    f64 and f32 at SPMV_TOL: each element block alone (a block whose
+    plain product is exactly 0, as a load term's, must give exactly 0),
+    then the blocks summed through `out` (the kernels' accumulate mode),
+    twice, bit for bit; and in f64 matvec/rmatvec, which take
+    element_design's design per block, bit for bit equal to that sum.
+    Returns max |kernel - plain| (f64, every design) by kernel.  Called
+    after the path's launches are read: these launches count for no
+    path."""
     def rel0(got, want):
         n = float(torch.linalg.norm(want))
         if n == 0.0:
@@ -1641,44 +1770,66 @@ def check_element_matrices(label, mats):
         return float(torch.linalg.norm(got - want)) / n
 
     rng = np.random.default_rng(11)
-    tol = SPMV_TOL[torch.float64]
     err = {"K4": 0.0, "K4T": 0.0}
     for j, A in enumerate(mats):
         n_rows, n_cols = A.shape
         dev = A.blocks[0].A.device
-        x = torch.as_tensor(rng.standard_normal(n_cols), device=dev)
-        y = torch.as_tensor(rng.standard_normal(n_rows), device=dev)
-        r = {"K4": [], "K4T": []}
-        plain = {"K4": 0.0, "K4T": 0.0}
-        for b in A.blocks:
-            pair = {"K4": (spmv.element_spmv_cuda(b.A, b.plan, x),
-                           spmv.element_spmv_plain(b.A, b.rows, b.cols, x,
-                                                   n_rows)),
-                    "K4T": (spmv.element_rspmv_cuda(b.A, b.plan, y),
-                            spmv.element_rspmv_plain(b.A, b.rows, b.cols,
-                                                     y, n_cols))}
-            for k, (got, want) in pair.items():
-                r[k].append(rel0(got, want))
-                err[k] = max(err[k], float((got - want).abs().max()))
-                plain[k] = plain[k] + want
-        got = {"K4": A.matvec(x), "K4T": A.rmatvec(y)}
-        again = {"K4": A.matvec(x), "K4T": A.rmatvec(y)}
-        torch.cuda.synchronize()
-        same = all(torch.equal(got[k], again[k]) for k in got)
-        for k in got:
-            r[k].append(rel0(got[k], plain[k]))
-            err[k] = max(err[k], float((got[k] - plain[k]).abs().max()))
+        x64 = torch.as_tensor(rng.standard_normal(n_cols), device=dev)
+        y64 = torch.as_tensor(rng.standard_normal(n_rows), device=dev)
         shapes = ", ".join("x".join(map(str, b.A.shape)) for b in A.blocks)
-        print(f"  {label}, Jacobian {j} ({shapes}), f64 vs plain, rel L2 "
-              f"per block then accumulated (tol {tol:.0e}): K4 "
-              f"{', '.join(f'{v:.3e}' for v in r['K4'])}; K4T "
-              f"{', '.join(f'{v:.3e}' for v in r['K4T'])}; second call "
-              f"bit-identical {same}")
-        if not all(v <= tol for v in r["K4"] + r["K4T"]):
-            raise AssertionError(f"{label}: K4/K4T disagree with plain on "
-                                 f"Jacobian {j}")
-        if not same:
-            raise AssertionError(f"{label}: two K4/K4T launches differ")
+        for dtype in (torch.float64, torch.float32):
+            tol = SPMV_TOL[dtype]
+            As = [b.A.to(dtype) for b in A.blocks]
+            sides = {"K4": (spmv.element_spmv_cuda, x64.to(dtype),
+                            [spmv.element_spmv_plain(a, b.rows, b.cols,
+                                                     x64.to(dtype), n_rows)
+                             for a, b in zip(As, A.blocks)]),
+                     "K4T": (spmv.element_rspmv_cuda, y64.to(dtype),
+                             [spmv.element_rspmv_plain(a, b.rows, b.cols,
+                                                       y64.to(dtype), n_cols)
+                              for a, b in zip(As, A.blocks)])}
+            for d in list(K4_DESIGNS) + [None]:
+                r, same = {"K4": [], "K4T": []}, True
+                for k, (kern, v, plain) in sides.items():
+                    if d is not None:
+                        for a, b, p in zip(As, A.blocks, plain):
+                            got = kern(a, b.plan, v, design=d)
+                            r[k].append(rel0(got, p))
+                            if dtype == torch.float64:
+                                err[k] = max(err[k], float(
+                                    (got - p).abs().max()))
+                    sums = []
+                    for _ in range(2):
+                        out = None
+                        for a, b in zip(As, A.blocks):
+                            out = kern(a, b.plan, v, out, design=d)
+                        sums.append(out)
+                    want = sum(plain)
+                    r[k].append(rel0(sums[0], want))
+                    same = same and torch.equal(sums[0], sums[1])
+                    if d is None and dtype == torch.float64:
+                        got = A.matvec(v) if k == "K4" else A.rmatvec(v)
+                        same = same and torch.equal(got, sums[0])
+                    if dtype == torch.float64:
+                        err[k] = max(err[k], float(
+                            (sums[0] - want).abs().max()))
+                torch.cuda.synchronize()
+                name = ("element_design's" if d is None
+                        else f"design {d}")
+                print(f"  {label}, matrix {j} ({shapes}), {name}, "
+                      f"{str(dtype)[6:]} vs plain, rel L2 "
+                      f"{'' if d is None else 'per block then '}"
+                      f"accumulated (tol {tol:.0e}): K4 "
+                      f"{', '.join(f'{v:.3e}' for v in r['K4'])}; K4T "
+                      f"{', '.join(f'{v:.3e}' for v in r['K4T'])}; second "
+                      f"sum bit-identical{' and equal to matvec/rmatvec' if d is None and dtype == torch.float64 else ''}: {same}")
+                if not all(v <= tol for v in r["K4"] + r["K4T"]):
+                    raise AssertionError(f"{label}: K4/K4T ({name}) "
+                                         f"disagree with plain on matrix "
+                                         f"{j}, {dtype}")
+                if not same:
+                    raise AssertionError(f"{label}: two K4/K4T sums "
+                                         f"({name}) differ")
     return err
 
 
@@ -1896,6 +2047,8 @@ def phase_topopt():
             > 1e-12:
         raise AssertionError("avg_density disagrees with the oracle")
     spmv_err = check_element_matrices("topopt", [f.emat for f in factors])
+    k4_times = time_element(f"W4 {c['num_el_x']}x{c['num_el_y']} "
+                            f"Jacobian", factors[0].emat, 13)
     del factors
 
     oracle_s = slice_c_oracle("topopt_slsqp")
@@ -1918,7 +2071,7 @@ def phase_topopt():
         raise AssertionError("topology optimization did not reduce the "
                              "compliance enough")
     return dict(launches=launches, seconds=t, slsqp_seconds=t_opt,
-                err=spmv_err)
+                err=spmv_err, k4_times=k4_times)
 
 
 def phase_beam():
@@ -2347,6 +2500,11 @@ FSI_SMALL_CPU = dict(n_shell=[4, 6], n_vlm=[2, 4], span=4.0, chord=1.0,
 #     longdouble residuals: tools/fsi_conditioning.py's direct_witness),
 #     relative: read 4.0e-4 (the unrefined pivoted LU 2.8e-3, the solve
 #     with the factor stored in f64 1.4e-3);
+#   anchor_f64: the anchor with f64 factor storage against the JAX
+#     package's anchor entry, tip and objective (relative) 2e-2, just above
+#     the 1.6e-2 spread of the exact first-pass tips of one operator summed
+#     from the port's card and CPU element blocks; gradient (relative L2)
+#     4e-2, twice that, as at (4, 6720) (1.65e-3 against 9.1e-4);
 #   mid: the (4, 6720) tip and objective against the JAX package's, f32
 #     factor storage (relative; read 1.1e-3); its gradient is not gated:
 #     with the f32-stored factor ten PCG iterations leave the solution a
@@ -2364,11 +2522,12 @@ FSI_SMALL_CPU = dict(n_shell=[4, 6], n_vlm=[2, 4], span=4.0, chord=1.0,
 #   residual: the (4, 1680) composite residual at a random state against
 #     the JAX package's, max abs over max abs.
 FSI_GATES = dict(conservation=1e-13, anchor_solve=1e-3,
+                 anchor_f64=dict(tip=2e-2, objective=2e-2, grad=4e-2),
                  mid=dict(tip=5e-3, objective=5e-3),
                  mid_f64=dict(tip=2.5e-3, objective=2.5e-3, grad=5e-3),
                  rung_f64=dict(tip=1.5e-5, objective=1.5e-5, grad=6e-5),
                  residual=1e-12)
-FSI_WARM = 3
+FSI_WARM = 2  # two warm calls: equal bits, and the last one's stages
 
 
 def fsi_config(key):
@@ -2549,9 +2708,9 @@ def check_fsi_kernels(f, err, last):
     (fsi_solve_witness); K1/K2 against
     plain on its factor (f32 storage, as the run's) at 10x the plain
     solve's spread under reordered sums, step residuals 1e-12, and timed
-    at (7246, 128); K4T against plain on Fm, its one block alone and
-    accumulated (f64 1e-14), and timed beside the transposed CSR
-    product."""
+    at (7246, 128); K4/K4T against plain on Fm in both designs
+    (check_element_matrices), and timed beside torch.sparse.mm on its CSR
+    and on the transposed CSR (time_element)."""
     carry = f["factor"](f["t0"])
     mat, fac = f["step"].bt.unpack(carry)
     witness = fsi_solve_witness(f, mat, last)
@@ -2565,21 +2724,8 @@ def check_fsi_kernels(f, err, last):
     del carry, mat, fac
     Fm = f["step"].fm()
     k4_err = check_element_matrices("fsi anchor Fm", [Fm])
-    (b0,) = Fm.blocks
-    ne, nr, nc = b0.A.shape
-    n_rows, n_cols = Fm.shape
-    y = torch.as_tensor(np.random.default_rng(48).standard_normal(n_rows),
-                        device=DEVICE)
-    csr_t = torch_csr(Fm.to_scipy_csr().T.tocsr())
-    nbytes = ne * nr * nc * 8 + ne * (nr + nc) * 4 + (n_rows + n_cols) * 8
-    t_k4t = time_spmv(
-        "K4T on Fm", "element_spmv_kernel",
-        lambda: spmv.element_rspmv_cuda(b0.A, b0.plan, y),
-        lambda: spmv.element_rspmv_plain(b0.A, b0.rows, b0.cols, y, n_cols),
-        lambda: torch.sparse.mm(csr_t, y[:, None]), nbytes, 2 * ne * nr * nc)
-    t_k4t["shape"] = dict(label="fsi anchor Fm (u test dofs x force dofs)",
-                          ne=ne, nr=nr, nc=nc, n_rows=n_rows, n_cols=n_cols)
-    return t_sweeps, t_k4t, k4_err["K4T"], witness
+    t_fm = time_element("fsi anchor Fm (u test dofs x force dofs)", Fm, 48)
+    return t_sweeps, t_fm, k4_err, witness
 
 
 def fsi_solve_witness(f, mat, last):
@@ -2614,6 +2760,30 @@ def fsi_solve_witness(f, mat, last):
     return w
 
 
+def fsi_anchor_f64(f, rounds):
+    """The anchor with its factor stored in f64, against the JAX package's
+    anchor entry (oracles/fsi_oracle.npz `anchor_f64`): f's build reused,
+    its factor storage set to f64 (build_fsi_jit_step(factor_store_dtype=
+    None) differs from f32 storage there alone); one solve_with_grad with
+    its launches counted; tip, objective and gradient at FSI_GATES'
+    anchor_f64 bars; force conservation."""
+    want = fsi_oracle("anchor_f64")
+    f["step"].bt.store = fsi_config("anchor_f64")["factor_store_dtype"]
+    t, out, launches, stats, _ = fsi_counted(
+        "f64-storage solve_with_grad", f, rounds)
+    r = fsi_outputs(out)
+    print(f"  f64 storage: conservation {r['conservation']:.3e}; rel_delta "
+          f"{r['rel_delta']:.3e} (JAX {float(want['rel_delta']):.3e}), "
+          f"adj_delta {r['adj_delta']:.3e} (JAX "
+          f"{float(want['adj_delta']):.3e})")
+    r["vs_jax"] = fsi_against("fsi anchor_f64", out, want,
+                              FSI_GATES["anchor_f64"])
+    if not r["conservation"] <= FSI_GATES["conservation"]:
+        raise AssertionError("fsi anchor_f64: forces not conserved")
+    r.update(seconds=t, launches=launches, stats=stats)
+    return r
+
+
 def phase_fsi(err):
     """The W7 anchor, build_fsi_jit_step(n_shell=(4, 13440), n_vlm=(4,
     32), span=30, thickness=0.05) in the JAX package's anchor solver
@@ -2623,7 +2793,9 @@ def phase_fsi(err):
     seconds; two of them give equal bits), peak device memory, force
     conservation; then on the anchor's own factor, operator and Fm the
     tip against the exact solution of its last system and the kernels
-    against plain (check_fsi_kernels); then the same wing at (4, 6720)
+    against plain (check_fsi_kernels); the anchor with f64 factor storage
+    against the JAX package's anchor entry (fsi_anchor_f64); then the
+    same wing at (4, 6720)
     and (4, 1680), f32 and f64 factor storage, against the JAX package's
     values (oracles/fsi_oracle.npz) and, at (4, 1680), its residual at a
     random state."""
@@ -2676,12 +2848,13 @@ def phase_fsi(err):
         raise AssertionError("fsi anchor gradient is not finite")
     last = {k: out[k] for k in ("disp_fluid", "x", "tip_disp")}
     del outs, out, o
-    t_sweeps, t_k4t, k4t_err, witness = check_fsi_kernels(f, err, last)
+    t_sweeps, t_fm, k4_err, witness = check_fsi_kernels(f, err, last)
     res = dict(witness=witness, build_s=t_build, first_s=t_first, warm_s=warm,
                warm_median_s=statistics.median(warm), stages_s=stages,
                peak_gib=peak / 2**30, launches=launches, stats=stats,
                calls=calls, n_cells=f["n_cells"], n_dofs=f["n_dofs"],
                nb=tpl.nb, B=tpl.B, **first)
+    res["anchor_f64"] = fsi_anchor_f64(f, c["rounds"])
     del f
     gc.collect()
     torch.cuda.empty_cache()
@@ -2693,7 +2866,7 @@ def phase_fsi(err):
         if key == "rung":
             res[key]["residual_vs_jax"] = fsi_residual_parity(f)
         del f
-    return res, t_sweeps, t_k4t, k4t_err
+    return res, t_sweeps, t_fm, k4_err
 
 
 def phase_fsi_small():
@@ -2815,11 +2988,12 @@ def main():
         paths[f"shell_{key}"] = shell[key]["launches"]
     paths["shell_modal"] = modal["launches"]
     paths["shell_module"] = module["launches"]
-    fsi, t_fsi, t_k4t_fsi, k4t_fsi_err = timed_phase("fsi", seconds,
-                                                     phase_fsi, err)
+    fsi, t_fsi, t_fm, k4_fsi_err = timed_phase("fsi", seconds, phase_fsi,
+                                               err)
     fsi_small = timed_phase("fsi_small", seconds, phase_fsi_small)
     print("fsi summary: " + json.dumps(dict(fsi, small=fsi_small)))
     fsi_paths = {"fsi_anchor": fsi["launches"],
+                 "fsi_anchor_f64": fsi["anchor_f64"]["launches"],
                  **{f"fsi_{k}": fsi[k]["launches"]
                     for k in ("mid", "mid_f64", "rung", "rung_f64")},
                  "fsi_small": fsi_small["launches"]}
@@ -2828,12 +3002,12 @@ def main():
           f"unstructured, W1 weak, shell, FSI anchor): max |kernel - "
           f"plain| K1 "
           f"{err['K1']:.3e}, K2 {err['K2']:.3e}")
-    # K4/K4T: max_abs_err over the nel=260 W1 operator and the Jacobians
-    # of W1 weak, W2 and W4
+    # K4/K4T: max_abs_err over the nel=260 W1 operator, the Jacobians of
+    # W1 weak, W2 and W4 and FSI's Fm, both designs
     for k in ("K4", "K4T"):
-        err_spmv[k] = max([err_spmv[k]] + [slice_c[p]["err"][k] for p in
-                                           ("w1_weak", "w2", "topopt")])
-    err_spmv["K4T"] = max(err_spmv["K4T"], k4t_fsi_err)
+        err_spmv[k] = max([err_spmv[k], k4_fsi_err[k]]
+                          + [slice_c[p]["err"][k] for p in
+                             ("w1_weak", "w2", "topopt")])
     print("motor summary: " + json.dumps({
         "refine4_refactor3": r4b, "refine1": r1b, "lu_basis": lb,
         "eager_model": eager, "unstructured": un}))
@@ -2865,16 +3039,15 @@ def main():
         row["launches_by_path"] = dict(
             w1=w1_launches[k], **{p: slice_c[p]["launches"][k]
                                   for p in ("w1_weak", "w2", "topopt")})
-    # K4T: the FSI adjoint's Fm^T products, and its times at Fm's shape
+    # K4T: the FSI adjoint's Fm^T products; K4/K4T's times at each shape
+    # (W1, W4, Fm), both designs: the top-level numbers are W1's
     rows[4]["launches_by_path"].update(
         {p: n["K4T"] for p, n in fsi_paths.items()})
-    rows[4]["shapes"] = [dict(
-        t_k4t_fsi["shape"], ms=t_k4t_fsi["ms"],
-        device_ms=t_k4t_fsi["device_ms"], plain_ms=t_k4t_fsi["plain_ms"],
-        plain_device_ms=t_k4t_fsi["plain_device_ms"],
-        library_ms=t_k4t_fsi["library_ms"],
-        library_device_ms=t_k4t_fsi["library_device_ms"],
-        bound_ms=t_k4t_fsi["bound"][0], bound_by=t_k4t_fsi["bound"][1])]
+    k4_shapes = t_spmv["K4_shapes"] + [slice_c["topopt"]["k4_times"], t_fm]
+    for row, k in ((rows[3], "K4"), (rows[4], "K4T")):
+        row.update(design=t_spmv[k]["design"],
+                   burst_ms=t_spmv[k]["burst_ms"], share=t_spmv[k]["share"],
+                   shapes=[shape_row(ts, k) for ts in k4_shapes])
     # K5: its top-level numbers are the W1 stiffness band's; "bands" adds
     # the other nel=260 bands; bound_ms is on the band's nonzeros with x and
     # y, plan_bound_ms on what K5 reads (plan, x, y), dense_bound_ms on the

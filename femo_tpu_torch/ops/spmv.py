@@ -5,10 +5,14 @@ experiments/pallas_spmv.py).
 * K4, element SpMV: `y = segment_sum(A_e @ x[cols_e], rows_e)`, and its
   transpose K4T, `x = segment_sum(A_e^T @ y[rows_e], cols_e)`.  This is
   `ElementMatrix.matvec/rmatvec` (fea/assemble.py), so every Krylov
-  iteration of a LinearSolver runs it.  The kernel is row-owner: an
-  `ElementSpMVPlan`, built once per element pattern and kept with the
-  compiled form's term, maps every output row to its (element, local
-  row) slots; one thread sums one row in a fixed order, without atomics.
+  iteration of a LinearSolver runs it.  Two hand-written designs, one
+  launch call each, read an `ElementSpMVPlan`, built once per element
+  pattern and kept with the compiled form's term: the row-owner kernel
+  (one thread per output entry walks its (element, local row|column)
+  slots) and the element-major one (a block forms the products of a tile
+  of consecutive elements into a partials buffer, then each output entry
+  sums its partials in element order).  `element_design` says which one a
+  pattern takes.  No atomics: the same bits every run.
 * K3, ELL SpMV `y_i = sum_k vals[i,k] x[cols[i,k]]`, on an ELL packing
   of the matrix (`ell_from_element_matrix`, `ELLOperator`).
 * K5, banded SpMV `y_i = sum_d band[i,d] x[i+d-b]`, on the RCM-reordered
@@ -64,7 +68,7 @@ def get_lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in _SUFFIX.values():
         fn = getattr(lib, f"element_spmv_{dt}")
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
         fn = getattr(lib, f"ell_spmv_{dt}")
         fn.argtypes = [p, p, p, p, i, i, p]
@@ -117,42 +121,94 @@ def _launch(kernel: str, fn_name: str, dtype, *args):
 def _owner_map(ids: np.ndarray, n: int, device):
     """CSR of the element slots (e * k + j of ids (ne, k)) owned by each
     of n output rows, in increasing slot (element) order: (ptr (n+1,),
-    slot (ne*k,)) int32 on device (the assembly's owner tables,
-    ops/scatter.py, come from the same `owner_csr`)."""
+    slot (ne*k,), dest (ne*k,)) int32 on device, dest the inverse of slot
+    (the place of each slot in owner order).  The assembly's owner tables
+    (ops/scatter.py) come from the same `owner_csr`."""
     if ids.size > _I32_MAX or n > _I32_MAX:
         raise ValueError("element pattern too large for int32 slot maps")
     ptr, slot = owner_csr(ids, n)
-    return (torch.as_tensor(ptr.astype(np.int32), device=device),
-            torch.as_tensor(slot.astype(np.int32), device=device))
+    dest = np.empty_like(slot)
+    dest[slot] = np.arange(slot.size, dtype=slot.dtype)
+    return tuple(torch.as_tensor(a.astype(np.int32), device=device)
+                 for a in (ptr, slot, dest))
+
+
+def _nodes(ids: np.ndarray):
+    """(nodes, bs): ids (ne, k) as nodes of bs consecutive entries,
+    ids[e, bs*a + c] = bs * nodes[e, a] + c, for the largest bs of 3 and 2
+    that holds (a vector field's components numbered together), else
+    (ids, 1)."""
+    ne, k = ids.shape
+    for bs in (3, 2):
+        if k % bs == 0:
+            blk = ids.reshape(ne, k // bs, bs)
+            if np.array_equal(blk, blk[:, :, :1] + np.arange(bs)) and \
+                    not np.any(blk[:, :, 0] % bs):
+                return blk[:, :, 0] // bs, bs
+    return ids, 1
 
 
 class ElementSpMVPlan:
-    """K4/K4T's row-owner maps of one element block pattern (rows (ne,
-    nr), cols (ne, nc)) for an (n_rows, n_cols) matrix.
+    """K4/K4T's owner maps of one element block pattern (rows (ne, nr),
+    cols (ne, nc)) for an (n_rows, n_cols) matrix.
 
     Constructing a plan does no work; `maps()` builds, at first use and
-    once, the int32 copies of rows and cols and, for each output side,
-    the CSR of the (element, local row|column) slots it owns, on the
-    pattern's device."""
+    once, on the pattern's device: the int32 copies of rows and cols; for
+    each output side the CSR of the (element, local row|column) slots it
+    owns (row_ptr/row_slot, col_ptr/col_slot) and its inverse, each slot's
+    place in owner order (row_dest, col_dest); and each side's index as
+    nodes of bs consecutive entries (row_nodes/row_bs, col_nodes/col_bs:
+    the gathered index of design 1).  `partials(dtype, transpose)` is
+    design 1's buffer of per-element products in owner order, (ne * nr,)
+    for K4 and (ne * nc,) for K4T, allocated at first use and reused by
+    every later launch: the launches are ordered on the current stream,
+    so one plan's products must not run on two streams at once."""
 
     def __init__(self, rows, cols, n_rows: int, n_cols: int):
         self.rows, self.cols = rows, cols
         self.n_rows, self.n_cols = int(n_rows), int(n_cols)
         self._maps = None
+        self._partials = {}
 
     def maps(self) -> dict:
         if self._maps is None:
             dev = self.rows.device
-            rows = self.rows.cpu().numpy().astype(np.int64)
-            cols = self.cols.cpu().numpy().astype(np.int64)
-            row_ptr, row_slot = _owner_map(rows, self.n_rows, dev)
-            col_ptr, col_slot = _owner_map(cols, self.n_cols, dev)
-            self._maps = dict(
-                rows=torch.as_tensor(rows.astype(np.int32), device=dev),
-                cols=torch.as_tensor(cols.astype(np.int32), device=dev),
-                row_ptr=row_ptr, row_slot=row_slot,
-                col_ptr=col_ptr, col_slot=col_slot)
+            m = {}
+            for side, ids, n in (("row", self.rows, self.n_rows),
+                                 ("col", self.cols, self.n_cols)):
+                ids = ids.cpu().numpy().astype(np.int64)
+                m[f"{side}s"] = torch.as_tensor(ids.astype(np.int32),
+                                                device=dev)
+                (m[f"{side}_ptr"], m[f"{side}_slot"],
+                 m[f"{side}_dest"]) = _owner_map(ids, n, dev)
+                nodes, m[f"{side}_bs"] = _nodes(ids)
+                m[f"{side}_nodes"] = torch.as_tensor(
+                    nodes.astype(np.int32), device=dev)
+            self._maps = m
         return self._maps
+
+    def partials(self, dtype, transpose: bool):
+        key = (dtype, bool(transpose))
+        if key not in self._partials:
+            side = self.cols if transpose else self.rows
+            self._partials[key] = torch.empty(side.numel(), dtype=dtype,
+                                              device=self.rows.device)
+        return self._partials[key]
+
+
+def element_design(nr: int, nc: int, transpose: bool, itemsize: int) -> int:
+    """The K4/K4T design (csrc/spmv.cu) an (nr, nc) element block pattern
+    takes in one direction, for values of `itemsize` bytes: 0, the
+    row-owner kernel, where the values one output reads of each element
+    lie within 64 bytes (K4: a row of nc values; K4T: a column spanning
+    (nr - 1) nc + 1), two sectors at most; 1, element-major products then
+    the owner sum, otherwise.  In f64 W1's 3 x 3 blocks take 0 both ways
+    and W4's 8 x 8 take 0 for K4 and 1 for K4T; FSI's 18 x 9 take 1 both
+    ways.  On an H100 each took the faster design there (chip_smoke.py,
+    PERF.md §6): where an output's reads stay in two sectors, the
+    row-owner kernel's one launch beats the two of design 1."""
+    span = (nr - 1) * nc + 1 if transpose else nc
+    return 0 if span * itemsize <= 64 else 1
 
 
 def element_spmv_plain(A, rows, cols, x, n_rows: int):
@@ -170,7 +226,7 @@ def element_rspmv_plain(A, rows, cols, y, n_cols: int):
         0, cols.reshape(-1), xe.reshape(-1))
 
 
-def _element_cuda(kernel, A, plan, v, out, transpose):
+def _element_cuda(kernel, A, plan, v, out, transpose, design=None):
     m = plan.maps()
     ne, nr, nc = A.shape
     n_in, n_out = ((plan.n_rows, plan.n_cols) if transpose
@@ -182,33 +238,45 @@ def _element_cuda(kernel, A, plan, v, out, transpose):
                          f"{tuple(m['cols'].shape)}")
     if tuple(v.shape) != (n_in,):
         raise ValueError(f"vector shape {tuple(v.shape)}, want ({n_in},)")
-    ptr, slot, idx = ((m["col_ptr"], m["col_slot"], m["rows"]) if transpose
-                      else (m["row_ptr"], m["row_slot"], m["cols"]))
+    if design is None:
+        design = element_design(nr, nc, transpose, v.element_size())
+    if design not in (0, 1):
+        raise ValueError(f"design must be 0 or 1, got {design!r}")
+    # the owned side's maps, the gathered side's index
+    own, gat = ("col", "row") if transpose else ("row", "col")
+    ptr, slot, dest = (m[f"{own}_{k}"] for k in ("ptr", "slot", "dest"))
+    idx, bs = ((m[f"{gat}s"], 1) if design == 0
+               else (m[f"{gat}_nodes"], m[f"{gat}_bs"]))
     accumulate = out is not None
     if out is None:
         out = torch.empty(n_out, dtype=v.dtype, device=v.device)
     _check_cuda(v, floats=[("A_e", A), ("out", out)],
-                ints=[("ptr", ptr), ("slot", slot), ("idx", idx)])
+                ints=[("ptr", ptr), ("slot", slot), ("idx", idx),
+                      ("dest", dest)])
     if tuple(out.shape) != (n_out,):
         raise ValueError(f"out shape {tuple(out.shape)}, want ({n_out},)")
+    part = plan.partials(v.dtype, transpose) if design == 1 else None
     with torch.cuda.device(v.device):
         _launch(kernel, "element_spmv", v.dtype, A.data_ptr(),
                 ptr.data_ptr(), slot.data_ptr(), idx.data_ptr(),
-                v.data_ptr(), out.data_ptr(), n_out, nr, nc,
-                int(transpose), int(accumulate))
+                dest.data_ptr(), v.data_ptr(),
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                n_out, ne, nr, nc, bs, int(transpose), int(accumulate),
+                design)
     return out
 
 
-def element_spmv_cuda(A, plan: ElementSpMVPlan, x, out=None):
+def element_spmv_cuda(A, plan: ElementSpMVPlan, x, out=None, design=None):
     """Launch K4 on CUDA tensors: A_e @ x scattered to the rows ((n_rows,)),
-    added into `out` when it is given."""
-    return _element_cuda("K4", A, plan, x, out, transpose=False)
+    added into `out` when it is given; `design` (0 or 1) overrides
+    element_design's choice."""
+    return _element_cuda("K4", A, plan, x, out, False, design)
 
 
-def element_rspmv_cuda(A, plan: ElementSpMVPlan, y, out=None):
+def element_rspmv_cuda(A, plan: ElementSpMVPlan, y, out=None, design=None):
     """Launch K4T on CUDA tensors: A_e^T @ y scattered to the columns
-    ((n_cols,)), added into `out` when it is given."""
-    return _element_cuda("K4T", A, plan, y, out, transpose=True)
+    ((n_cols,)), added into `out` when it is given; `design` as K4's."""
+    return _element_cuda("K4T", A, plan, y, out, True, design)
 
 
 def element_matvec(blocks, x, shape, transpose: bool = False):

@@ -36,14 +36,17 @@ entry alone to read its own).
   cells, 463,722 dofs, nb=3623), the anchor's wing at half its spanwise
   resolution, in the anchor's solver configuration and with f64
   storage.
+* anchor_f64: the anchor itself, (4, 13440) / (4, 32) (107,520 cells,
+  927,402 dofs, nb=7246), in the anchor's solver configuration with f64
+  factor storage (~8 GiB and several minutes on the CPU host).
 * rung, rung_f64, rung_mixed: the same wing at (4, 1680) (13,440 cells),
   chunked as the anchor is (assembly_chunk 4096), three ways;
   rung_residual: its composite residual at a seeded random state and
   force (seed 3, scale 1e-3), the operator without a solve.
 
-The anchor itself ((4, 13440), 107,520 cells) has no entry: the entries
-stop at half the anchor's size, the (4, 6720) ones.  The state x is not
-stored.
+The anchor has only its f64-storage entry: with f32 factor storage ten
+PCG iterations do not converge on this wing (the gradient is not
+meaningful there, see mid).  The state x is not stored.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python oracles/fsi_oracle.py \
         --element-matrices mid OUT.npz
@@ -104,6 +107,7 @@ CONFIGS = {
 CONFIGS["small_mixed"] = dict(CONFIGS["small"], factor_compute_dtype="mixed")
 CONFIGS["mid_f64"] = dict(CONFIGS["mid"], factor_store_dtype=None)
 CONFIGS["small_f64"] = dict(CONFIGS["small"], factor_store_dtype=None)
+CONFIGS["anchor_f64"] = dict(CONFIGS["mid_f64"], n_shell=[4, 13440])
 RUNG = dict(n_shell=[4, 1680], n_vlm=[4, 32], span=30.0, thickness=0.05,
             assembly_chunk=4096)
 CONFIGS["rung"] = dict(RUNG, **ANCHOR_SOLVER)

@@ -261,6 +261,34 @@ def test_guards():
                 build(n_shell=(4, 6), n_vlm=(2, 4))
 
 
+def test_anchor_f64_entry(oracle):
+    """The JAX package's anchor entry that chip_smoke.py holds the card's
+    anchor to: computed for chip_smoke.py's anchor configuration with the
+    factor stored in f64, at the anchor's sizes, with finite values."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(ORACLE), os.pardir,
+                                   "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = cs.fsi_config("anchor_f64")
+    assert cfg == dict(cs.FSI_CONFIGS["anchor"], factor_store_dtype=None)
+    assert cfg == dict(n_shell=[4, 13440], n_vlm=[4, 32], span=30.0,
+                       thickness=0.05, gs_inner=4, factor_store_dtype=None,
+                       pcg_rtol=1e-7, pcg_maxiter=10, rounds=5)
+    e = _entry(oracle, "anchor_f64", cfg)
+    assert (int(e["n_dofs"]), int(e["nb"]), int(e["B"])) == (927402, 7246,
+                                                              128)
+    assert e["grad"].shape == (107520,)
+    assert all(np.all(np.isfinite(e[k])) for k in
+               ("tip", "objective", "compliance", "aero", "mapped", "grad"))
+    assert float(e["tip"]) == float(e["objective"])  # the tip objective
+    assert _conservation({"total_aero_force": e["aero"],
+                          "total_mapped_force": e["mapped"]}) \
+        <= CONSERVATION
+
+
 def test_conditioning_tool(tmp_path):
     """tools/fsi_conditioning.py on the anchor's wing at (4, 2): the tips
     as built and perturbed, and one solve's PCG history (the recursive

@@ -5,8 +5,11 @@ The plain versions of K3/K4/K5 (what CPU tensors run) and the element
 matrix's matvec/rmatvec are held to the JAX package's ElementMatrix and
 to the Pallas kernels of experiments/pallas_spmv.py run as the JAX
 package runs them on the CPU (interpret mode), at 1e-12: the same
-products summed in another order.  The K4 row-owner maps, which only the
-CUDA kernel reads, are checked by replaying the kernel's loop in numpy.
+products summed in another order.  The K4 owner maps, which only the
+CUDA kernels read, are checked by replaying each design's arithmetic in
+numpy: the row-owner loop, and the element-major products followed by
+the owner-ordered sum, the latter also on a seeded rectangular 18 x 9
+pattern (the shape of the FSI force-load operator's blocks).
 """
 
 import importlib.util
@@ -17,13 +20,16 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from femo_tpu.fea.assemble import (
+    ElementMatrix as JElementMatrix, MatBlock as JMatBlock)
 from femo_tpu.fea import (
     FormDef as JFormDef, Function as JFunction, FunctionSpace as JSpace,
     assemble_matrix as jassemble_matrix, create_unit_square_mesh as jmesh_fn,
     dot as jdot, dx as jdx, grad as jgrad)
 from femo_tpu.solvers.krylov import cg as jcg
 
-from femo_tpu_torch.fea.assemble import assemble_matrix
+from femo_tpu_torch.fea.assemble import (
+    ElementMatrix, MatBlock, assemble_matrix)
 from femo_tpu_torch.fea.forms import FormDef, dot, dx, grad
 from femo_tpu_torch.fea.space import Function, FunctionSpace
 from femo_tpu_torch.mesh.generators import create_unit_square_mesh
@@ -136,6 +142,110 @@ def test_k4_owner_maps_replay_the_product(ops, transpose):
     ref = (ops["A"].rmatvec if transpose else ops["A"].matvec)(
         torch.as_tensor(x)).numpy()
     assert _rel(y, ref) < TOL
+
+
+def _vector_pattern(nr, nc, bs, seed=7):
+    """Two seeded element blocks of nr x nc for a vector field of bs
+    components numbered together (entry bs * node + c, as the FSI
+    force-load operator's 18 x 9 blocks and W4's 8 x 8 are): rows among
+    the components of 100 nodes, columns among those of 20, so each
+    column is shared by several elements.  The torch ElementMatrix on the
+    CPU and the JAX package's."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols = 100 * bs, 20 * bs
+
+    def ids(n_nodes, k):
+        nodes = rng.choice(n_nodes, k // bs, replace=False)
+        return (bs * nodes[:, None] + np.arange(bs)).reshape(-1)
+
+    blocks = []
+    for ne in (37, 11):
+        rows = np.array([ids(100, nr) for _ in range(ne)])
+        cols = np.array([ids(20, nc) for _ in range(ne)])
+        blocks.append((rng.standard_normal((ne, nr, nc)), rows, cols))
+    A = ElementMatrix([MatBlock(torch.as_tensor(a), torch.as_tensor(r),
+                                torch.as_tensor(c)) for a, r, c in blocks],
+                      n_rows, n_cols)
+    jA = JElementMatrix([JMatBlock(jnp.asarray(a), jnp.asarray(r),
+                                   jnp.asarray(c)) for a, r, c in blocks],
+                        n_rows, n_cols)
+    return A, jA
+
+
+def _replay_element_major(A, m, v, transpose, out=None):
+    """K4/K4T design 1 in numpy from the plan's int32 maps: the gathered
+    side's values from its nodes (bs consecutive entries each), each
+    element's products summed over k in increasing order and stored at
+    their owner-ordered place dest, then each output's run of partials
+    summed in order, added into `out` when it is given."""
+    own, gat = ("col", "row") if transpose else ("row", "col")
+    nodes, bs = m[f"{gat}_nodes"].numpy(), m[f"{gat}_bs"]
+    ptr, slot, dest = (m[f"{own}_{k}"].numpy()
+                       for k in ("ptr", "slot", "dest"))
+    np.testing.assert_array_equal(dest[slot], np.arange(slot.size))
+    ne, ni = nodes.shape[0], nodes.shape[1] * bs
+    idx = (bs * nodes[:, :, None] + np.arange(bs)).reshape(ne, ni)
+    np.testing.assert_array_equal(idx, m[f"{gat}s"].numpy())
+    Ak = A.transpose(0, 2, 1) if transpose else A  # (ne, products, k)
+    prod = np.zeros(Ak.shape[:2])
+    for k in range(ni):
+        prod = prod + Ak[:, :, k] * v[idx[:, k]][:, None]
+    part = np.empty(prod.size)
+    part[dest] = prod.reshape(-1)
+    y = np.zeros(len(ptr) - 1)
+    for i in range(len(y)):
+        assert np.all(np.diff(slot[ptr[i]:ptr[i + 1]]) > 0)
+        for s in range(ptr[i], ptr[i + 1]):
+            y[i] += part[s]
+    return y if out is None else out + y
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("pattern", ["w1", "rect18x9", "quad8x8"])
+def test_k4_element_major_replays_the_product(ops, pattern, transpose):
+    """K4/K4T's element-major design replayed in numpy from the plans'
+    maps, block after block into one output (the kernels' accumulate
+    mode), against the plain versions and the JAX package's
+    matvec/rmatvec: on the W1 fixture (scalar, bs 1), a rectangular
+    18 x 9 pattern of 3-component nodes and an 8 x 8 one of 2."""
+    if pattern == "w1":
+        A, jA, bs = ops["A"], ops["jA"], 1
+    else:
+        nr, nc, bs = (18, 9, 3) if pattern == "rect18x9" else (8, 8, 2)
+        A, jA = _vector_pattern(nr, nc, bs)
+    for b in A.blocks:
+        m = b.plan.maps()
+        assert m["row_bs"] == m["col_bs"] == bs
+    n_rows, n_cols = A.shape
+    v = np.random.default_rng(3).standard_normal(n_rows if transpose
+                                                 else n_cols)
+    y = None
+    for b in A.blocks:
+        m = b.plan.maps()
+        part = b.plan.partials(torch.float64, transpose)
+        assert part.shape == ((b.cols if transpose else b.rows).numel(),)
+        y = _replay_element_major(b.A.numpy(), m, v, transpose, y)
+    vt = torch.as_tensor(v)
+    plain = sum((spmv.element_rspmv_plain(b.A, b.rows, b.cols, vt, n_cols)
+                 if transpose else
+                 spmv.element_spmv_plain(b.A, b.rows, b.cols, vt, n_rows))
+                for b in A.blocks)
+    ref = (jA.rmatvec if transpose else jA.matvec)(jnp.asarray(v))
+    assert _rel(y, plain.numpy()) < TOL
+    assert _rel(y, ref) < TOL
+    assert _rel((A.rmatvec if transpose else A.matvec)(vt).numpy(),
+                ref) < TOL
+
+
+@pytest.mark.parametrize("nr, nc, transpose, itemsize, design", [
+    (3, 3, False, 8, 0), (3, 3, True, 8, 0),    # W1: row-owner both ways
+    (8, 8, False, 8, 0), (8, 8, True, 8, 1),    # W4: rows 64 B, columns not
+    (18, 9, False, 8, 1), (18, 9, True, 8, 1),  # FSI's Fm: element-major
+    (8, 8, True, 4, 1), (4, 4, True, 4, 0), (1, 1, True, 8, 0)])
+def test_k4_design_rule(nr, nc, transpose, itemsize, design):
+    """element_design: the row-owner kernel where one output's values of
+    an element lie within 64 bytes, the element-major design otherwise."""
+    assert spmv.element_design(nr, nc, transpose, itemsize) == design
 
 
 def test_ell_matches_jax_and_pallas_interpret(ops):
