@@ -1,16 +1,17 @@
-"""Static aeroelastic fluid-structure interaction, workload W7 (port of the
-static half of femo_tpu/models/fsi.py).
+"""Aeroelastic fluid-structure interaction, workloads W7 (static), W8
+(dynamic gust response) and W9 (prescribed aero loads): the port of
+femo_tpu/models/fsi.py.
 
 VLM -> RBF force map -> RM shell solve -> RBF displacement map -> lattice
-update, iterated as a damped Gauss-Seidel fixed point (the reference
-couples through csdl.NonlinearBlockGS,
-run_aeroelasticity_static_w_feedback.py:346-355).
+update.
 
-* `build_wing_fsi`: the coupled problem through the composite op (dense,
-  block-Thomas or scipy inner solves) and the differentiable fixed point
-  of graph/fixed_point.py.
-* `build_fsi_jit_step`: the coupled optimization iteration at reference
-  scale (the 107,520-cell eVTOL wing class,
+* `build_wing_fsi`: the static coupled problem through the composite op
+  (dense, block-Thomas or scipy inner solves), iterated as a damped
+  Gauss-Seidel fixed point under the differentiable fixed point of
+  graph/fixed_point.py (the reference couples through
+  csdl.NonlinearBlockGS, run_aeroelasticity_static_w_feedback.py:346-355).
+* `build_fsi_jit_step`: the static coupled optimization iteration at
+  reference scale (the 107,520-cell eVTOL wing class,
   run_aeroelasticity_static_w_feedback.py:55).  The RM shell operator is
   linear and fixed for a given thickness, so it is filled and factored
   once per design point; every Gauss-Seidel pass is a VLM solve, a
@@ -20,28 +21,55 @@ run_aeroelasticity_static_w_feedback.py:346-355).
   the constant force-load operator's transpose (one K4T launch per block
   on CUDA tensors) and a vector-Jacobian product through the VLM and the
   RBF maps.
+* `DynamicShellFSI` (W8, eager): implicit-midpoint time integration of
+  the shell residual (run_aeroelasticity_dynamic.py:197-208),
+    v_new = 2 (u_new - u_old)/dt - v_old,
+    R = rho t (v_new - v_old)/dt . w + dPsi(u_mid) . w - f_mid . w,
+  an outer time loop around an inner FSI fixed point, under the
+  1-cosine gust `one_cosine_gust` (reference :126-139); with an
+  `aero_forces_fn` (`aero_forces_from_file`: .npz or .h5 restart files)
+  the loads are prescribed (W9) and a step is one solve.
+* `build_dynamic_fsi_jit_step`: W8 at the reference's dynamic mesh ladder
+  (run_aeroelasticity_dynamic.py:51-55).  The midpoint operator
+  (2 rho t / dt^2) M + K/2 is constant in time, so it is factored once
+  and every step and inner pass is a VLM solve, a right-hand side and a
+  polished block-Thomas solve (K1/K2).  Its checkpointed trajectory
+  adjoint re-linearizes each step from the stored states and reuses the
+  factor (the operator is symmetric); each backward step runs an
+  Irons-Tuck relaxed adjoint fixed point whose passes apply Fm^T (K4T)
+  and a VJP through the VLM and the RBF maps.  external_loads=True is
+  W9: one solve a step each way, and the gradient with respect to the
+  load series besides the thickness.
 
-Deliberate departures from the JAX builder, which exist there only for
+Deliberate departures from the JAX builders, which exist there only for
 the TPU runtime: no `pcg_maxiter` depth clamp (the note for an rtol below
 1e-9 stays); one factor loop at every size (no `factor_chunked` past 4096
 blocks); the adjoint passes run as one host loop (no chunked adjoint
 programs); the maps and term data are plain tensors, not program
 arguments, so the programs take no `consts`.  `factor_compute_dtype=
 "mixed"` computes the plain f64 block inverses, as the shell's does, and
-takes no `mixed_ns` / `mixed_tol`.  `factor_method="cr"` and
+takes no `mixed_ns` / `mixed_tol`.  The dynamic trajectory adjoint keeps
+its per-step checkpoints (u, theta, v) on the device, where the JAX
+package moves them to the host to free TPU memory (twelve states of the
+662,442-dof rung are ~0.2 GB).  The dynamic builder takes a `template`
+(an earlier build's block-tridiagonal template of the same wing), which
+the JAX builder does not.  `factor_method="cr"` and
 `factor_compute_dtype="float32"` belong to ROADMAP slice D2b and raise.
-The dynamic FSI (W8) and the external-load regime (W9) are not ported.
 """
-
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
+from torch.func import jvp
 
 from ..config import config, get_device
 from ..fea.assemble import ElementMatrix, compile_form
 from ..fea.bc import DirichletBC, apply_bc, constrain_residual
+from ..fea.forms import FormDef, dx
 from ..fea.project import lumped_mass
+from ..fea.space import Function
 from ..graph.fixed_point import fixed_point_solve, fixed_point_solve_jit
 from ..mesh.generators import create_rectangle_mesh
 from ..mesh.mesh import Mesh
@@ -49,7 +77,7 @@ from ..ops.block_tridiag import (
     BlockThomasFactor, BlockTridiagonalMatrix, BlockTridiagTemplate,
     pcg_fixed, pcg_tol)
 from .coupling import NodalMap, force_map_mass_weighted
-from .shell import RMShellModel
+from .shell import RMShellModel, local_frame, shell_energy_density
 from .vlm import VLM, flat_wing_lattice_np
 
 D2B = "ROADMAP slice D2b"
@@ -65,13 +93,16 @@ def _wing_shell_system(n_shell, span, chord, E, nu, rho_s, device):
     coords3 = np.concatenate([m2.coords, np.zeros((m2.n_nodes, 1))], axis=1)
     mesh = Mesh(coords3, m2.cells, "triangle")
     shell = RMShellModel(mesh, E=E, nu=nu, rho=rho_s, device=device)
+    return mesh, shell, shell.make_state(_clamp_bcs(shell))
 
+
+def _clamp_bcs(shell):
+    """u = 0 and theta = 0 at the root, y = 0."""
     def clamp(x):
         return np.isclose(x[1], 0.0)
 
-    bcs = [DirichletBC(shell.Vu, 0.0, where=clamp),
-           DirichletBC(shell.Vth, 0.0, where=clamp)]
-    return mesh, shell, shell.make_state(bcs)
+    return [DirichletBC(shell.Vu, 0.0, where=clamp),
+            DirichletBC(shell.Vth, 0.0, where=clamp)]
 
 
 def _lattice(span, chord, n_vlm):
@@ -387,16 +418,14 @@ class _FSIStep:
 
     def fm(self) -> ElementMatrix:
         """Fm = dR_u / d(force) at zero fields, assembled at the first
-        call and kept."""
+        call and kept (constant: the force enters R_u linearly)."""
         if self._fm is None:
-            z = lambda V: torch.zeros(V.n_dofs, dtype=config.dtype,  # noqa
-                                      device=self.dev)
-            sh = self.shell
+            zeros = {name: torch.zeros(f.space.n_dofs, dtype=config.dtype,
+                                       device=self.dev)
+                     for name, f in self.ucf.form.coeffs.items()}
             with torch.no_grad():
-                self._fm = self.ucf.matrix(
-                    {"u": z(sh.Vu), "theta": z(sh.Vth),
-                     "thickness": z(sh.Vt), "force": z(sh.Vf)}, "force",
-                    self.assembly_chunk)
+                self._fm = self.ucf.matrix(zeros, "force",
+                                           self.assembly_chunk)
         return self._fm
 
     def adjoint(self, carry, tarr, x):
@@ -602,3 +631,622 @@ def build_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
                 residual=residual, vlm=vlm, vvec=vvec, ucf=ucf,
                 tcf=compile_form(shell.res_th), stats=st.stats,
                 assembly_chunk=assembly_chunk, step=st)
+
+
+# ---------------------------------------------------------------------------
+# W8: implicit-midpoint dynamic aeroelasticity, and W9: the same march under
+# a prescribed aero-load series
+# ---------------------------------------------------------------------------
+
+
+def one_cosine_gust(t, t0=0.1, duration=0.2, w_gust=2.0):
+    """1-cosine vertical gust velocity at time t (a float or a tensor; a
+    tensor in the working dtype, on t's device, comes back)."""
+    t = torch.as_tensor(t, dtype=config.dtype)
+    s = (t - t0) / duration
+    inside = (s >= 0) & (s <= 1)
+    return torch.where(inside, 0.5 * w_gust * (1 - torch.cos(2 * np.pi * s)),
+                       0.0)
+
+
+def aero_forces_from_file(path: str, times_key: str = "time",
+                          forces_key: str = "forces", device=None):
+    """An `aero_forces_fn(t) -> (n_pts, 3)` from a precomputed aero-load
+    time series on disk (W9: the reference's VPM variant feeds its dynamic
+    FSI from restart files, run_aeroelasticity_vpm.py:15-25).  .npz or
+    .h5/.hdf5 (h5py) with datasets `time` (n_t,) and `forces` (n_t, n_pts,
+    3); sorted by time, interpolated linearly, held constant outside the
+    range.  The series lives on `device` (default `config.device`)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".h5", ".hdf5"):
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            times = np.asarray(f[times_key])
+            forces = np.asarray(f[forces_key])
+    elif ext == ".npz":
+        with np.load(path) as d:
+            times, forces = np.asarray(d[times_key]), np.asarray(d[forces_key])
+    else:
+        raise ValueError(f"unsupported restart-file format: {path}")
+    order = np.argsort(times)
+    dev = get_device(device)
+    tj = torch.as_tensor(times[order], dtype=config.dtype, device=dev)
+    fj = torch.as_tensor(forces[order], dtype=config.dtype, device=dev)
+    tiny = torch.finfo(tj.dtype).tiny
+
+    def fn(t):
+        t = torch.as_tensor(t, dtype=config.dtype, device=dev)
+        i = torch.clamp(torch.searchsorted(tj, t), 1, len(tj) - 1)
+        t0, t1 = tj[i - 1], tj[i]
+        w = torch.clamp((t - t0) / torch.clamp(t1 - t0, min=tiny), 0.0, 1.0)
+        return (1.0 - w) * fj[i - 1] + w * fj[i]
+
+    return fn
+
+
+def synthetic_restart(path, n_pts, t_end, n_samples=24, seed=0):
+    """A synthetic VPM-like restart file (.npz) at `path`: a smooth ramp to
+    steady lift with a per-revolution oscillation, sampled coarser than the
+    structural dt (examples/run_aeroelasticity_vpm.py's writer)."""
+    rng = np.random.default_rng(seed)
+    times = np.linspace(0.0, t_end, n_samples)
+    base = rng.standard_normal((n_pts, 3)) * 0.03
+    base[:, 2] += 1.0  # dominant lift
+    ramp = 1.0 - np.exp(-times / max(t_end / 4, 1e-9))
+    osc = 1.0 + 0.2 * np.sin(2 * np.pi * times / max(t_end / 3, 1e-9))
+    series = base[None, :, :] * (40.0 * ramp * osc)[:, None, None]
+    np.savez(path, time=times, forces=series)
+    return path
+
+
+def _midpoint_forms(shell, dt):
+    """The implicit-midpoint residual of the RM shell over the coefficients
+    [u, theta, u_old, theta_old, v_old, thickness, force]:
+
+      R_u = rho t (v_new - v_old)/dt . w + dPsi(u_mid) . w - f . w,
+      v_new = 2 (u_new - u_old)/dt - v_old,  u_mid = (u_new + u_old)/2,
+
+    R_theta = dPsi(theta_mid) . w.  Returns (u_old, theta_old, v_old,
+    res_u, res_th)."""
+    u_old = Function(shell.Vu, "u_old")
+    th_old = Function(shell.Vth, "theta_old")
+    v_old = Function(shell.Vu, "v_old")
+    rho = shell.rho
+    E_, nu_, drill_ = shell.E, shell.nu, shell.drill
+    dt = float(dt)
+
+    def mid(w):
+        return (0.5 * (w.u.val + w.u_old.val), 0.5 * (w.u.grad + w.u_old.grad),
+                0.5 * (w.theta.val + w.theta_old.val),
+                0.5 * (w.theta.grad + w.theta_old.grad))
+
+    def dpsi_u(w, g):
+        frame = local_frame(g.J)
+        uv, ug, tv, tg = mid(w)
+
+        def psi(a, b):
+            return shell_energy_density(a, b, tv, tg, w.thickness.val, frame,
+                                        E_, nu_, drill_)
+
+        return jvp(psi, (uv, ug), (w.v.val, w.v.grad))[1]
+
+    def inertia(w, g):
+        accel = (2.0 / dt**2) * (w.u.val - w.u_old.val) \
+            - (2.0 / dt) * w.v_old.val
+        return rho * w.thickness.val * torch.dot(accel, w.v.val)
+
+    def r_u(w, g):
+        return dpsi_u(w, g) + inertia(w, g) - torch.dot(w.force.val, w.v.val)
+
+    def r_th(w, g):
+        frame = local_frame(g.J)
+        uv, ug, tv, tg = mid(w)
+
+        def psi(a, b):
+            return shell_energy_density(uv, ug, a, b, w.thickness.val, frame,
+                                        E_, nu_, drill_)
+
+        return jvp(psi, (tv, tg), (w.v.val, w.v.grad))[1]
+
+    coeffs = [shell.u, shell.theta, u_old, th_old, v_old, shell.thickness,
+              shell.force]
+    return (u_old, th_old, v_old,
+            FormDef([dx(r_u, qdeg=4)], coeffs=coeffs, test=shell.Vu),
+            FormDef([dx(r_th, qdeg=4)], coeffs=coeffs, test=shell.Vth))
+
+
+def _clamped_state(shell, res_u, res_th):
+    """The (u, theta) composite state of the midpoint forms, clamped at
+    y = 0."""
+    from ..fea.composite import CompositeState
+
+    return CompositeState([shell.u, shell.theta],
+                          {"u": res_u, "theta": res_th}, _clamp_bcs(shell))
+
+
+class DynamicShellFSI:
+    """Implicit-midpoint dynamic aeroelasticity (W8), eager.
+
+    Each time step solves the dynamic shell residual (inertia + stiffness
+    at the midpoint) under aero loads from the VLM at the midpoint
+    configuration, by an inner fixed point (the reference's custom_solve
+    time loop, run_aeroelasticity_dynamic.py:272-391).  `fsi` is a
+    `build_wing_fsi` problem; every step's solve is one block-Thomas
+    Newton step of the composite op ("jit_bt": K1/K2 on CUDA tensors),
+    exact for the linear shell."""
+
+    def __init__(self, fsi: dict, dt: float, fsi_iters: int = 8,
+                 gust=one_cosine_gust):
+        from ..fea.composite import composite_implicit_op
+
+        self.fsi = fsi
+        self.dt = dt
+        self.gust = gust
+        self.fsi_iters = fsi_iters
+        self.shell = shell = fsi["shell"]
+        self.state = fsi["state"]
+        self.u_old, self.theta_old, self.v_old, res_u, res_th = \
+            _midpoint_forms(shell, dt)
+        self.dyn_state = _clamped_state(shell, res_u, res_th)
+        self.dyn_op = composite_implicit_op(
+            self.dyn_state,
+            ["u_old", "theta_old", "v_old", "thickness", "force"],
+            newton_opts={"jit_newton_iters": 1}, mode="jit_bt")
+
+    def run(self, n_steps: int, thickness_arr=None, report: bool = False,
+            aero_forces_fn=None):
+        """Time march from rest; returns {"tip_disp": [...], "time": [...]}.
+
+        aero_forces_fn(t) -> (n_force_points, 3): a prescribed aero-load
+        series replacing the VLM (W9); the loads are then
+        motion-independent and the inner fixed point is one pass."""
+        fsi, shell = self.fsi, self.shell
+        mesh, vlm, lat0, vvec = fsi["mesh"], fsi["vlm"], fsi["lat0"], \
+            fsi["v_inf"]
+        disp_map = fsi["disp_map"]
+        dev = vvec.device
+        fmap = force_map_mass_weighted(fsi["force_map"],
+                                       lumped_mass(shell.Vf)[0::3])
+        tarr = (thickness_arr if thickness_arr is not None
+                else shell.thickness.array)
+
+        def zeros(V):
+            return torch.zeros(V.n_dofs, dtype=config.dtype, device=dev)
+
+        u_old, th_old, v_old = zeros(shell.Vu), zeros(shell.Vth), \
+            zeros(shell.Vu)
+        ez = torch.tensor([0.0, 0.0, 1.0], dtype=config.dtype, device=dev)
+        tip = int(np.argmax(mesh.coords[:, 1]))
+        history = {"tip_disp": [], "time": []}
+        st = self.dyn_state
+        x = st.current()
+        dt = self.dt
+        inner = 1 if aero_forces_fn is not None else self.fsi_iters
+        for n in range(n_steps):
+            t_mid = (n + 0.5) * dt
+            v_now = vvec + ez * torch.as_tensor(
+                self.gust(t_mid), dtype=config.dtype, device=dev)
+            u_guess = st.split(x)["u"]
+            for it in range(inner):
+                if aero_forces_fn is not None:
+                    forces = torch.as_tensor(aero_forces_fn(t_mid),
+                                             dtype=config.dtype, device=dev)
+                else:
+                    u_mid = (0.5 * (u_guess + u_old)).reshape(
+                        -1, 3)[:mesh.n_nodes]
+                    d_lat = disp_map.map_displacements(u_mid)
+                    forces = vlm.solve(lat0 + d_lat.reshape(lat0.shape),
+                                       v_now)["forces"]
+                x = self.dyn_op(
+                    {"u_old": u_old, "theta_old": th_old, "v_old": v_old,
+                     "thickness": tarr, "force": fmap(forces).reshape(-1)},
+                    x.detach())
+                u_new = st.split(x)["u"]
+                delta = float(torch.linalg.norm((u_new - u_guess).detach()))
+                u_guess = u_new
+                if delta < 1e-9:
+                    break
+            th_new = st.split(x)["theta"]
+            v_new = 2.0 * (u_new - u_old) / dt - v_old
+            u_old, th_old, v_old = u_new, th_new, v_new
+            w_tip = float(u_new.reshape(-1, 3)[tip, 2])
+            history["tip_disp"].append(w_tip)
+            history["time"].append((n + 1) * dt)
+            if report:
+                print(f"  step {n + 1}: t={(n + 1) * dt:.3f} "
+                      f"tip={w_tip:.5e} (fsi iters {it + 1})")
+        return history
+
+
+class _DynamicFSIStep(_FSIStep):
+    """The stages of `build_dynamic_fsi_jit_step`, as methods (the step
+    profiler runs each inside its own range).  The polished solve (`inv`,
+    `_polish`), `zeros` and `u_nodes` are _FSIStep's."""
+
+    # -- one implicit-midpoint solve ----------------------------------------
+    def params(self, tarr, u_old, th_old, v_old, farr):
+        return {"thickness": tarr, "u_old": u_old, "theta_old": th_old,
+                "v_old": v_old, "force": farr}
+
+    def rhs(self, tarr, u_old, th_old, v_old, farr):
+        """-R_c(u0) of the midpoint residual at the BC-applied zero state
+        (linear in u_new: one Newton step solves it)."""
+        u0 = apply_bc(self.zeros(), self.free, self.bv)
+        R = self.residual(u0, self.params(tarr, u_old, th_old, v_old, farr))
+        return u0, -constrain_residual(R, u0, self.free, self.bv)
+
+    def solve_midpoint(self, mat, fac, tarr, u_old, th_old, v_old, traction):
+        u0, b = self.rhs(tarr, u_old, th_old, v_old, traction.reshape(-1))
+        return apply_bc(u0 + self.inv(mat, fac, b), self.free, self.bv)
+
+    def v_now(self, t_mid):
+        return self.vvec + self.ez * torch.as_tensor(
+            self.gust(t_mid), dtype=config.dtype, device=self.dev)
+
+    def aero_traction(self, d, v_now):
+        """Nodal traction (n_nodes, 3) of the VLM on lattice + d."""
+        aero = self.vlm.solve(self.lat0 + d.reshape(self.lat0.shape), v_now)
+        return self.consts["__fmapW__"] @ aero["forces"]
+
+    def d_mid(self, x, u_old):
+        """The lattice displacement of the midpoint configuration."""
+        u_mid = 0.5 * (x[:self.off_th] + u_old)
+        return (self.consts["__dmapW__"]
+                @ u_mid.reshape(-1, 3)[:self.n_nodes]).reshape(-1)
+
+    def _advance(self, x, u_old, v_old):
+        u_new, th_new = x[:self.off_th], x[self.off_th:]
+        v_new = 2.0 * (u_new - u_old) / self.dt - v_old
+        return u_new, th_new, v_new, self.u_nodes(x)[self.tip_idx, 2]
+
+    # -- the programs ---------------------------------------------------------
+    def step(self, carry, tarr, u_old, th_old, v_old, d, t_mid):
+        """One W8 time step: fsi_iters passes of VLM at the gusted velocity
+        -> traction -> midpoint solve -> lattice at the midpoint
+        configuration.  Returns (u_new, th_new, v_new, d_new, tip)."""
+        mat, fac = self.bt.unpack(carry)
+        with torch.no_grad():
+            v_now = self.v_now(t_mid)
+            x = self.zeros()
+            for _ in range(self.fsi_iters):
+                trac = self.aero_traction(d, v_now)
+                x = self.solve_midpoint(mat, fac, tarr, u_old, th_old, v_old,
+                                        trac)
+                d = self.d_mid(x, u_old)
+            u_new, th_new, v_new, tip = self._advance(x, u_old, v_old)
+            return u_new, th_new, v_new, d, tip
+
+    def step_ext(self, carry, tarr, u_old, th_old, v_old, d, f_mid):
+        """One W9 time step: one midpoint solve under the prescribed
+        midpoint loads f_mid (n_force_pts, 3); d passes through."""
+        mat, fac = self.bt.unpack(carry)
+        with torch.no_grad():
+            x = self.solve_midpoint(mat, fac, tarr, u_old, th_old, v_old,
+                                    self.consts["__fmapW__"] @ f_mid)
+            u_new, th_new, v_new, tip = self._advance(x, u_old, v_old)
+            return u_new, th_new, v_new, d, tip
+
+    # -- trajectory adjoint ---------------------------------------------------
+    # The per-step state equation at the converged inner fixed point:
+    #   S_n(x_n; x_{n-1}, v_{n-1}, t) =
+    #     constrain(R(x_n; x_{n-1}, v_{n-1}, t, trac(u_mid))),
+    # u_mid = (u_n + u_{n-1})/2 driving the VLM traction, with the explicit
+    # update v_n = 2 (u_n - u_{n-1})/dt - v_{n-1}.  The dynamic operator
+    # A = (2 rho t/dt^2) M + K/2 is constant and symmetric, so every
+    # backward step reuses the forward factor; the aero coupling enters
+    # the adjoint fixed point as in the static adjoint (Fm^T, one K4T
+    # launch, and a VJP through the VLM and the RBF maps per pass).
+    def S(self, x_new, x_old, v_old, tarr, t_mid):
+        trac = self.aero_traction(self.d_mid(x_new, x_old[:self.off_th]),
+                                  self.v_now(t_mid))
+        return self.S_ext_trac(x_new, x_old, v_old, tarr, trac)
+
+    def S_ext_trac(self, x_new, x_old, v_old, tarr, trac):
+        p = self.params(tarr, x_old[:self.off_th], x_old[self.off_th:], v_old,
+                        trac.reshape(-1))
+        return constrain_residual(self.residual(x_new, p), x_new, self.free,
+                                  self.bv)
+
+    def _fold_v(self, xbar, vbar):
+        """The x_n cotangent with the explicit v_n update folded in
+        (dv_n/du_n = 2/dt), and vbar padded to the state."""
+        pad_v = torch.cat([vbar, vbar.new_zeros(self.n_dofs - self.off_th)])
+        return xbar + (2.0 / self.dt) * pad_v, pad_v
+
+    def _vjp_S(self, lam, S_of, x_old, v_old, tarr, *extra):
+        """(d S / d(x_old, v_old, tarr, *extra))^T lam."""
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_(True)
+                   for a in (x_old, v_old, tarr) + extra]
+            return torch.autograd.grad(S_of(*ins), ins, lam)
+
+    def adjoint_step(self, carry, tarr, x_new, x_old, v_old, t_mid, xbar,
+                     vbar, fm=None):
+        """One W8 backward step: (xbar_old, vbar_old, dJ/dt increment,
+        adj_delta), adj_delta the relative lambda increment of the last of
+        the adj_passes Irons-Tuck passes."""
+        mat, fac = self.bt.unpack(carry)
+        Fm = self.fm() if fm is None else fm
+        xbar_eff, pad_v = self._fold_v(xbar, vbar)
+        u_old = x_old[:self.off_th].detach()
+        with torch.enable_grad():
+            xx = x_new.detach().requires_grad_(True)
+            tv = self.aero_traction(self.d_mid(xx, u_old),
+                                    self.v_now(t_mid)).reshape(-1)
+        with torch.no_grad():
+            def G(lam):
+                lam_u = torch.where(self.free, lam, 0.0)[:self.off_th]
+                (vjp,) = torch.autograd.grad(tv, xx, Fm.rmatvec(lam_u),
+                                             retain_graph=True)
+                return self.inv(mat, fac, xbar_eff - vjp)
+
+            lam = self.inv(mat, fac, xbar_eff)
+            r_prev = torch.zeros_like(lam)
+            om = torch.ones((), dtype=config.dtype, device=self.dev)
+            adel = torch.zeros((), dtype=config.dtype, device=self.dev)
+            for i in range(self.adj_passes):
+                r = G(lam) - lam
+                om = _aitken(om, r, r_prev, i == 0)
+                adel = torch.linalg.norm(r) / (torch.linalg.norm(lam + r)
+                                               + 1e-30)
+                lam, r_prev = lam + om * r, r
+        del tv
+        xo_bar, vo_bar, t_bar = self._vjp_S(
+            lam, lambda xo, vo, tt: self.S(x_new.detach(), xo, vo, tt, t_mid),
+            x_old, v_old, tarr)
+        return (-(2.0 / self.dt) * pad_v - xo_bar, -vbar - vo_bar, -t_bar,
+                adel)
+
+    def adjoint_step_ext(self, carry, tarr, x_new, x_old, v_old, f_mid, xbar,
+                         vbar):
+        """One W9 backward step: no aero fixed point (dS/dx_new has no
+        traction term), so lambda is one polished solve.  Returns
+        (xbar_old, vbar_old, dJ/dt increment, dJ/d(f_mid))."""
+        mat, fac = self.bt.unpack(carry)
+        xbar_eff, pad_v = self._fold_v(xbar, vbar)
+        with torch.no_grad():
+            lam = self.inv(mat, fac, xbar_eff)
+        fmapW = self.consts["__fmapW__"]
+        xo_bar, vo_bar, t_bar, f_bar = self._vjp_S(
+            lam, lambda xo, vo, tt, fm: self.S_ext_trac(
+                x_new.detach(), xo, vo, tt, fmapW @ fm),
+            x_old, v_old, tarr, f_mid)
+        return (-(2.0 / self.dt) * pad_v - xo_bar, -vbar - vo_bar, -t_bar,
+                -f_bar)
+
+    # -- drivers ------------------------------------------------------------
+    def _series(self, forces_series, n_steps):
+        if not self.external_loads:
+            return None
+        if forces_series is None:
+            raise ValueError("external_loads build requires forces_series "
+                             "(n_steps, n_panels, 3)")
+        s = torch.as_tensor(forces_series, dtype=config.dtype,
+                            device=self.dev)
+        if s.shape[0] < n_steps:
+            raise ValueError(f"forces_series has {s.shape[0]} steps, "
+                             f"{n_steps} requested")
+        return s
+
+    def _march(self, carry, tarr, n_steps, series, report, keep):
+        """The forward time march from rest: (tips, checkpoints), the
+        per-step states (u, th, v) kept (on the device) when `keep`."""
+        u, th, v = (self.zeros()[:self.off_th], self.zeros()[self.off_th:],
+                    self.zeros()[:self.off_th])
+        d = torch.zeros(self.n_lat * 3, dtype=config.dtype, device=self.dev)
+        states = [(u, th, v)] if keep else None
+        tips = []
+        for n in range(n_steps):
+            if series is not None:
+                u, th, v, d, tip = self.step_ext(carry, tarr, u, th, v, d,
+                                                 series[n])
+            else:
+                u, th, v, d, tip = self.step(carry, tarr, u, th, v, d,
+                                             (n + 0.5) * self.dt)
+            if keep:
+                states.append((u, th, v))
+            tips.append(float(tip))
+            if report:
+                print(f"  step {n + 1}: t={(n + 1) * self.dt:.3f} "
+                      f"tip={tips[-1]:.5e}")
+        return tips, states
+
+    def run(self, tarr, n_steps, report=False, forces_series=None):
+        """Factor once, march n_steps from rest; returns {"time": [...],
+        "tip_disp": [...]}.  With external_loads, forces_series is the
+        (n_steps, n_panels, 3) midpoint-sampled load series (W9)."""
+        series = self._series(forces_series, n_steps)
+        carry = self.bt.factor(tarr)
+        tips, _ = self._march(carry, tarr, n_steps, series, report, False)
+        return {"time": [(n + 1) * self.dt for n in range(n_steps)],
+                "tip_disp": tips}
+
+    def run_with_grad(self, tarr, n_steps, J_of_tips=None, report=False,
+                      carry=None, forces_series=None):
+        """The gradient of a trajectory functional J(tip_1..tip_N) with
+        respect to the per-cell thickness, through the whole time history
+        (and, with external_loads, with respect to the load series).
+
+        J_of_tips: a torch function (n_steps,) -> scalar; default the
+        smooth max (p-norm, p = 8) of |tip|.  `carry` reuses a factor.
+        Returns J, tips, grad_thickness, adj_deltas (backward order; 0.0
+        for W9's single solve), forward_s, backward_s, adj_step_s, and
+        with external_loads grad_forces (n_steps, n_panels, 3)."""
+        import time as _time
+
+        if J_of_tips is None:
+            def J_of_tips(tips):
+                return torch.mean(torch.abs(tips) ** 8) ** 0.125
+
+        series = self._series(forces_series, n_steps)
+        if carry is None:
+            carry = self.bt.factor(tarr)
+        t_fwd = _time.perf_counter()
+        tips, states = self._march(carry, tarr, n_steps, series, report, True)
+        forward_s = _time.perf_counter() - t_fwd
+        tips_t = torch.tensor(tips, dtype=config.dtype, requires_grad=True)
+        with torch.enable_grad():
+            J = J_of_tips(tips_t)
+            (tipbars,) = torch.autograd.grad(J, tips_t)
+        tipbars = tipbars.tolist()
+
+        t_bwd = _time.perf_counter()
+        xbar = self.zeros()
+        vbar = self.zeros()[:self.off_th]
+        tbar = torch.zeros_like(tarr)
+        fm = None if series is not None else self.fm()
+        adj_deltas, adj_step_s = [], []
+        grad_forces = [None] * n_steps
+        for n in reversed(range(n_steps)):
+            u_n, th_n, _ = states[n + 1]
+            u_p, th_p, v_p = states[n]
+            x_new, x_old = torch.cat([u_n, th_n]), torch.cat([u_p, th_p])
+            xbar = xbar.clone()
+            xbar[3 * self.tip_idx + 2] += tipbars[n]
+            t_st = _time.perf_counter()
+            if series is not None:
+                xbar, vbar, tinc, grad_forces[n] = self.adjoint_step_ext(
+                    carry, tarr, x_new, x_old, v_p, series[n], xbar, vbar)
+                adj_deltas.append(0.0)  # one exact solve: no fixed point
+                if self.dev.type == "cuda":
+                    torch.cuda.synchronize(self.dev)
+            else:
+                xbar, vbar, tinc, adel = self.adjoint_step(
+                    carry, tarr, x_new, x_old, v_p, (n + 0.5) * self.dt,
+                    xbar, vbar, fm)
+                adj_deltas.append(float(adel))
+            adj_step_s.append(_time.perf_counter() - t_st)
+            tbar = tbar + tinc
+            if report:
+                print(f"  adj step {n + 1}: lambda rel-incr="
+                      f"{adj_deltas[-1]:.3e} ({adj_step_s[-1]:.2f} s)")
+        out = dict(J=float(J.detach()), tips=np.asarray(tips),
+                   grad_thickness=tbar,
+                   adj_deltas=adj_deltas, forward_s=forward_s,
+                   backward_s=_time.perf_counter() - t_bwd,
+                   adj_step_s=adj_step_s)
+        if series is not None:
+            out["grad_forces"] = torch.stack(grad_forces)
+        return out
+
+
+def build_dynamic_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
+                               chord=1.0, E=7e10, nu=0.3, thickness=0.01,
+                               rho_air=1.225, v_inf=(20.0, 0.0, 2.0),
+                               rho_s=2700.0, dt=0.01, fsi_iters=3,
+                               pcg_iters=4,
+                               factor_store_dtype="float32",
+                               assembly_chunk: int | None = None,
+                               gust=one_cosine_gust,
+                               factor_method: str = "thomas",
+                               factor_compute_dtype=None,
+                               adj_passes: int = 6,
+                               external_loads: bool = False,
+                               device=None, template=None):
+    """Reference-ladder dynamic aeroelasticity (gust response, W8) on
+    `device` (default `config.device`, the card), factored once.
+
+    Implicit midpoint (run_aeroelasticity_dynamic.py:197-208): the dynamic
+    operator A = (2 rho t / dt^2) M + K/2 is constant in time for a fixed
+    thickness and dt, so it is filled and block-Thomas-factored once, and
+    every time step and every inner FSI pass is a VLM solve, a
+    right-hand-side assembly and one block-Thomas solve (K1 + K2 on CUDA
+    tensors) with `pcg_iters` fixed PCG polish iterations against the f64
+    operator.  n_shell=(4, 9600), n_vlm=(4, 24), span=21, thickness=0.05
+    is bench_scale.py's 77k rung of the reference's dynamic mesh ladder
+    (run_aeroelasticity_dynamic.py:51-55): 76,800 cells, 662,442 dofs.
+
+    external_loads=True is W9 (the VPM restart-file regime,
+    run_aeroelasticity_vpm.py:15-25): the aero forces are a prescribed
+    (n_steps, n_panels, 3) series sampled at the step midpoints instead of
+    the coupled VLM, so a step is one midpoint solve; `run` and
+    `run_with_grad` then require `forces_series`, and `run_with_grad`
+    also returns grad_forces = dJ/d(series).
+
+      factor(tarr) -> carry                       fill + factor
+      step(carry, tarr, u, th, v, d, t_mid | f_mid)
+          -> (u_new, th_new, v_new, d_new, tip)   one time step
+      run(tarr, n_steps, report, forces_series)   the tip history
+      run_with_grad(tarr, n_steps, J_of_tips, report, carry, forces_series)
+                                                  the checkpointed
+                                                  trajectory adjoint
+      adjoint_step(...)                           one backward step
+
+    Launches per step: W8 forward fsi_iters polished solves; W8 backward
+    1 + adj_passes solves and adj_passes Fm^T products (K4T); W9 one
+    solve each way.  A polished solve launches K1 and K2 each 2 +
+    pcg_iters times (one, without the polish); `stats` counts the solves
+    ("solves") and the polish's preconditioner applications ("precond").
+
+    template: the BlockTridiagTemplate (`tpl`) of an earlier build of the
+    same wing, reused instead of recomputed (it is the build's largest host
+    cost, and depends on the mesh and the clamp alone).  factor_method=
+    "cr" and factor_compute_dtype="float32" are ROADMAP slice D2b and
+    raise; "mixed" computes the plain f64 inverses.  See the module
+    docstring for the departures from the JAX builder.
+    """
+    if factor_method not in ("thomas", "cr"):
+        raise ValueError(f"factor_method must be 'thomas' or 'cr', "
+                         f"got {factor_method!r}")
+    if factor_compute_dtype not in (None, "mixed", "float32"):
+        raise ValueError(f"factor_compute_dtype must be None, 'mixed' or "
+                         f"'float32', got {factor_compute_dtype!r}")
+    _unported(factor_method, factor_compute_dtype)
+    dev = get_device(device)
+    mesh, shell, _ = _wing_shell_system(n_shell, span, chord, E, nu, rho_s,
+                                        dev)
+    if assembly_chunk is None and mesh.n_cells > 30000:
+        assembly_chunk = 8192
+    _, _, _, res_u, res_th = _midpoint_forms(shell, dt)
+    state = _clamped_state(shell, res_u, res_th)
+    free, bv = state.free, state.bc_values
+    n_dofs = state.n_dofs
+
+    def residual(x, p):
+        return state.residual(x, p, chunk=assembly_chunk)
+
+    def zeros(V):
+        return torch.zeros(V.n_dofs, dtype=config.dtype, device=dev)
+
+    def jac_blocks(x, tarr):
+        # the dynamic Jacobian does not depend on the old state or loads
+        p = {"thickness": tarr, "u_old": zeros(shell.Vu),
+             "theta_old": zeros(shell.Vth), "v_old": zeros(shell.Vu),
+             "force": zeros(shell.Vf)}
+        return state.jacobian_blocks(x, p, chunk=assembly_chunk)
+
+    if template is None:
+        tpl = _composite_bt_template(state)
+    elif template.n != n_dofs:
+        raise ValueError(f"template is for {template.n} dofs, this wing has "
+                         f"{n_dofs}")
+    else:
+        tpl = template
+    bt = _BTPrograms(tpl, jac_blocks, n_dofs, free, bv, factor_store_dtype)
+    vlm, lat0, vvec, consts, _ = _vlm_and_maps(mesh, shell, n_vlm, span,
+                                               chord, rho_air, v_inf)
+    st = _DynamicFSIStep(
+        dev=dev, shell=shell, state=state, free=free, bv=bv, n_dofs=n_dofs,
+        off_th=shell.Vu.n_dofs, n_nodes=mesh.n_nodes,
+        tip_idx=int(np.argmax(mesh.coords[:, 1])), residual=residual,
+        bt=bt, vlm=vlm, lat0=lat0, vvec=vvec, consts=consts,
+        ucf=compile_form(res_u), n_lat=int(np.prod(lat0.shape[:-1])),
+        dt=float(dt), gust=gust, fsi_iters=fsi_iters, adj_passes=adj_passes,
+        external_loads=external_loads, pcg_iters=pcg_iters, pcg_rtol=None,
+        assembly_chunk=assembly_chunk, _fm=None,
+        ez=torch.tensor([0.0, 0.0, 1.0], dtype=config.dtype, device=dev),
+        stats=dict(solves=0, precond=0, pcg_iters=[]))
+    t0 = torch.full((shell.Vt.n_dofs,), thickness, dtype=config.dtype,
+                    device=dev)
+    return dict(mesh=mesh, shell=shell, state=state, consts=consts,
+                factor=bt.factor, fill=bt.fill, factor_core=bt.factor_core,
+                step=st.step_ext if external_loads else st.step,
+                run=st.run, run_with_grad=st.run_with_grad,
+                adjoint_step=(st.adjoint_step_ext if external_loads
+                              else st.adjoint_step),
+                t0=t0, n_dofs=n_dofs, n_cells=mesh.n_cells, dt=float(dt),
+                tpl=tpl, n_force_pts=int(consts["__fmapW__"].shape[1]),
+                residual=residual, vlm=vlm, vvec=vvec, lat0=lat0,
+                ucf=st.ucf, stats=st.stats, assembly_chunk=assembly_chunk,
+                dyn=st)

@@ -1,9 +1,9 @@
 """Where the time of the port's motor step, W1 optimization step, W6
-shell compliance step and W7 FSI optimization iteration goes, on one CUDA
-card.
+shell compliance step, W7 FSI optimization iteration and W8 trajectory
+gradient goes, on one CUDA card.
 
     python -m femo_tpu_torch.tools.profile_step [--refine 1 4] [--w1 260]
-        [--shell a b] [--fsi] [--refactor-every N]
+        [--shell a b] [--fsi] [--fsi-dynamic] [--refactor-every N]
         [--freeze-operator] [--steps 5] [--out FILE]
 
 For each refine level the motor step is built in f64 in the
@@ -20,7 +20,10 @@ objective l2_functional, `Simulator.run()` once) and its step is one
 storage and pcg_iters=4, and its step is one call (compliance and its
 thickness gradient); with `--fsi` the FSI anchor (FSI_ANCHOR: 107,520
 cells, 927,402 dofs, the JAX package's anchor solver) is built in f64
-and its step is one `solve_with_grad`.  Each step is
+and its step is one `solve_with_grad`; with `--fsi-dynamic` the W8
+rung (DYN_RUNG: 76,800 cells, 662,442 dofs, f32 factor storage) is
+built in f64 and its step is one `run_with_grad` over DYN_STEPS time
+steps (the factor, the forward march, the checkpointed adjoint).  Each step is
 run once to warm, timed over `--steps` untraced warm steps (host clock,
 ending in a device sync), then traced for one warm step with
 torch.profiler (CPU + CUDA).  During the traced step the port's layers
@@ -133,6 +136,33 @@ FSI_LAYERS = {
     "sweeps.K2": (bt_sweeps, "bwd_sweep_cuda"),
     "spmv.K4T": (spmv, "element_rspmv_cuda"),
 }
+# the dynamic FSI's layers (W8/W9, models/fsi.py): the factor's halves,
+# the forward steps, the VLM, the right-hand-side assembly, the
+# block-Thomas solves (K1 + K2 each), the PCG polish, the backward steps
+# and the Fm^T products
+DYN_LAYERS = {
+    "dyn.fill": (fsi._BTPrograms, "fill"),
+    "dyn.factor_core": (fsi._BTPrograms, "factor_core"),
+    "dyn.step": (fsi._DynamicFSIStep, "step"),
+    "dyn.step_ext": (fsi._DynamicFSIStep, "step_ext"),
+    "dyn.vlm": (VLM, "solve"),
+    "dyn.rhs": (fsi._DynamicFSIStep, "rhs"),
+    "dyn.sweeps": (BlockThomasFactor, "solve"),
+    "dyn.pcg": (fsi._FSIStep, "_polish"),
+    "dyn.adjoint": (fsi._DynamicFSIStep, "adjoint_step"),
+    "dyn.adjoint_ext": (fsi._DynamicFSIStep, "adjoint_step_ext"),
+    "bt.matvec": (BlockTridiagonalMatrix, "matvec"),
+    "assemble.rmatvec": (ElementMatrix, "rmatvec"),
+    "sweeps.K1": (bt_sweeps, "fwd_sweep_cuda"),
+    "sweeps.K2": (bt_sweeps, "bwd_sweep_cuda"),
+    "spmv.K4T": (spmv, "element_rspmv_cuda"),
+}
+# the W8 rung of the reference's dynamic mesh ladder (bench_scale.py's
+# run_fsi_dynamic, 76,800 cells) over DYN_STEPS steps (the gust acts from
+# step 11)
+DYN_RUNG = dict(n_shell=(4, 9600), n_vlm=(4, 24), span=21.0, thickness=0.05,
+                dt=0.01, fsi_iters=2, pcg_iters=4, adj_passes=6)
+DYN_STEPS = 12
 # the FSI anchor: the reference's eVTOL wing class in the JAX package's
 # anchor solver configuration (bench_scale.py), 5 rounds of 4 passes
 FSI_ANCHOR = dict(n_shell=(4, 13440), n_vlm=(4, 32), span=30.0,
@@ -395,6 +425,29 @@ def profile_fsi(steps):
     return r
 
 
+def profile_fsi_dynamic(steps):
+    """The W8 rung's trajectory gradient, `run_with_grad` over DYN_STEPS
+    time steps (factor, forward march, checkpointed adjoint), f32 factor
+    storage (bench_scale.py's configuration)."""
+    cfg = DYN_RUNG
+    t_build, f = _sync_time(lambda: fsi.build_dynamic_fsi_jit_step(
+        device="cuda", factor_store_dtype="float32", **cfg))
+    stats = f["stats"]
+    r, out = trace_step(lambda: f["run_with_grad"](f["t0"], DYN_STEPS),
+                        steps, DYN_LAYERS)
+    _sweep_rates(r)
+    n_calls = 2 + steps  # warm-up, the timed steps and the traced one
+    r.update(name=f"fsi dynamic {cfg}, {DYN_STEPS} steps",
+             config={k: list(v) if isinstance(v, tuple) else v
+                     for k, v in cfg.items()},
+             cells=f["n_cells"], dofs=f["n_dofs"],
+             bt=dict(nb=f["tpl"].nb, B=f["tpl"].B), loss=out["J"],
+             tips=out["tips"].tolist(), adj_deltas=out["adj_deltas"],
+             forward_s=out["forward_s"], backward_s=out["backward_s"],
+             build_s=t_build, solves_per_step=stats["solves"] / n_calls)
+    return r
+
+
 def _summary(r, copy_gbs):
     print(f"{r['name']} ({r['cells']} cells): loss "
           f"{r['loss']!r}; warm step median {r['warm_step_median_s']:.4f} s "
@@ -428,6 +481,8 @@ def main(argv=None):
                     help="shell step configurations at n_shell=(24, 400)")
     ap.add_argument("--fsi", action="store_true",
                     help="the FSI anchor's optimization iteration")
+    ap.add_argument("--fsi-dynamic", action="store_true",
+                    help="the W8 rung's trajectory gradient")
     ap.add_argument("--refactor-every", type=int, default=1,
                     help="motor step: factor every N Newton iterations")
     ap.add_argument("--freeze-operator", action="store_true",
@@ -456,7 +511,9 @@ def main(argv=None):
             + [lambda v=v: profile_w1(v, args.steps) for v in args.w1]
             + [lambda v=v: profile_shell(v, args.steps)
                for v in args.shell]
-            + ([lambda: profile_fsi(args.steps)] if args.fsi else []))
+            + ([lambda: profile_fsi(args.steps)] if args.fsi else [])
+            + ([lambda: profile_fsi_dynamic(args.steps)]
+               if args.fsi_dynamic else []))
     for run in runs:
         r = run()
         _summary(r, copy_gbs)
