@@ -25,7 +25,14 @@ non-zero without the final line:
 5. the same step at refine 4 (the reference's largest dof class), then
    K1/K2 against the plain sweeps on its mesh-motion (B=512) and EM
    (B=256) factors, with their times there; these are in the kernels line
-   too.
+   too.  refine4_cr: the same step with block cyclic reduction
+   (factor_method="cr"): 0 K1/K2 launches (counted from 0, as the code
+   says), loss (1e-8) and gradient (1e-6) against the JAX package's r4_cr
+   entry (oracles/motor_oracle.npz), a warm step, the peak device memory,
+   and on the step's mesh-motion Jacobian the CR factor and solve beside
+   Thomas's (CUDA events and the profiler's device time), the stored
+   bytes, the solve's byte bound and the factor's flops against the f64
+   peak.
 6. SpMV: K4/K4T (element), K3 (ELL) and K5 (RCM band) against their plain
    versions (f64 1e-14, f32 1e-6) and each other on the W1 operator at
    nel=260; K5, which reads a plan of the band's nonzero diagonal
@@ -145,9 +152,9 @@ non-zero without the final line:
    24-pass coupled adjoint): the build (the host template), the first
    solve_with_grad with K1/K2/K4T counted (K1 and K2 once per inner solve
    and per preconditioner application that pcg_tol reports, K4T once per
-   adjoint pass), the median of 2 warm ones with the stage seconds of the
-   last (fill, factor core, Gauss-Seidel, finalize, adjoint), equal bits
-   between warm calls, peak device memory, rel_delta, adj_delta and the
+   adjoint pass), a warm one with its stage seconds (fill, factor core,
+   Gauss-Seidel, finalize, adjoint), equal bits
+   between the two calls, peak device memory, rel_delta, adj_delta and the
    PCG iteration counts; force conservation (1e-13); the tip against
    the exact solution of its own last linear system, solved apart from
    the block-Thomas path by banded LU with partial pivoting on the host
@@ -159,13 +166,26 @@ non-zero without the final line:
    timed beside torch.sparse.mm on its CSR and on the transposed CSR;
    the anchor again with its factor stored in f64, one solve_with_grad
    counted, against the JAX package's anchor entry (tip and objective
-   2e-2, gradient 4e-2: FSI_GATES' anchor_f64);
+   2e-2, gradient 4e-2: FSI_GATES' anchor_f64); the anchor with block
+   cyclic reduction in that f64-storage configuration, built on the
+   anchor's template: one counted solve_with_grad (K4T 24, no K1/K2) and
+   a second with its stages timed, equal bits, peak memory, force
+   conservation (1e-13), the tip against the exact solution of its own
+   last system (no farther than the unrefined pivoted LU of that system:
+   FSI_GATES' anchor_cr_solve), tip and objective against the port's Thomas
+   f64-storage run above (1e-3: FSI_GATES' anchor_cr), the distance to
+   the JAX anchor entry printed and not gated, the CR factor and solve
+   beside Thomas's; the anchor operator's equilibrated f32 factor
+   (factor_compute_dtype="float32": guarded f32 recursion, its rescued
+   blocks) with K1/K2 in f32 against plain (SWEEP_TOL f32, or 10x the
+   plain solve's reordered-sum spread) and timed at (7246, 128);
    then the same wing against the JAX package's values
    (oracles/fsi_oracle.npz) at (4, 6720) (53,760 cells; f32 factor
    storage: tip and objective; f64 storage: tip, objective and
    gradient) and at (4, 1680) (13,440 cells, chunked; f32 storage within
-   10x the JAX package's own spread, f64 storage at fixed bars, and the
-   residual at a random state, 1e-12).
+   10x the JAX package's own spread, f64 storage at fixed bars, cyclic
+   reduction with f64 storage against the JAX package's rung_cr_f64 at
+   rung_f64's bars, and the residual at a random state, 1e-12).
 24. fsi_small: bench_scale.py's small rung (16, 24) / (4, 8) against the
    oracle within 10x the JAX package's own spread between two of its
    factors, and the card against CPU tensors at (4, 6).
@@ -191,13 +211,25 @@ non-zero without the final line:
    restart series written to a temporary directory and read back through
    aero_forces_from_file, one counted run_with_grad against the JAX
    package's entry (tips, J, the thickness and load gradients,
-   DYN_GATES); the eager DynamicShellFSI at (4, 6), with and without an
-   active gust, against the JAX package's eager tips within 10x its
-   eager-vs-jit spread.
+   DYN_GATES); W8 on that template with block cyclic reduction and with
+   the equilibrated f32 factor (f64 storage, DYN_FACTORS), one counted
+   run_with_grad each (cr: no K1/K2), CR against the JAX package's
+   rung_f64 entry at DYN_GATES, the f32 factor's distance printed and not
+   gated (no preconditioner at this chain length, in either package;
+   DYN_FACTORS says why), its rescued blocks, and K1/K2 in f32 against
+   plain on its factor, timed at (5176, 128); the f32 factor on the same
+   wing at 600 spanwise cells against the JAX package's span600_f64 entry
+   at DYN_GATES; the eager
+   DynamicShellFSI at (4, 6), with and without an active gust, against
+   the JAX package's eager tips within 10x its eager-vs-jit spread.
+26. facets_3d: an interior-facet residual and its Jacobian on
+   create_unit_cube_mesh(8), tets and hexes, on the card against CPU
+   tensors (1e-12), twice with equal bits.
 
 Each phase prints its wall seconds.  It prints a JSON line describing
 the kernels (K1/K2 with their launches on every motor path, the
-shell's and FSI's, W8's and W9's, K4/K4T on W1, W1 with weak BCs, W2
+shell's and FSI's, W8's and W9's (0 on the cyclic-reduction paths), with
+their f32 times on the f32 factors, K4/K4T on W1, W1 with weak BCs, W2
 and W4 and K4T on FSI's and W8's Fm, with K4/K4T's times at W1's, W4's
 and both Fm shapes),
 and last
@@ -234,14 +266,15 @@ from femo_tpu_torch.entry import entry
 from femo_tpu_torch.fea.assemble import (
     ElementMatrix, MatBlock, assemble_matrix, compile_form)
 from femo_tpu_torch.fea.fea import FEA
-from femo_tpu_torch.fea.forms import FormDef, dot, ds, dx, grad
+from femo_tpu_torch.fea.forms import FormDef, dS, dot, ds, dx, grad, jump
 from femo_tpu_torch.fea.shape import shape_gradient
 from femo_tpu_torch.fea.space import Function, FunctionSpace
 from femo_tpu_torch.fea.utils import errorNorm
 from femo_tpu_torch.graph.model import FEAModel
 from femo_tpu_torch.graph.optimizer import OptimizationProblem, SLSQP
 from femo_tpu_torch.graph.simulator import Simulator
-from femo_tpu_torch.mesh.generators import create_unit_square_mesh
+from femo_tpu_torch.mesh.generators import (
+    create_unit_cube_mesh, create_unit_square_mesh)
 from femo_tpu_torch.models.beam import OPENMDAO_THICK_REF, build_beam_problem
 from femo_tpu_torch.models.poisson import (
     build_fea, build_jit_opt_step, on_boundary)
@@ -253,7 +286,8 @@ from femo_tpu_torch.models.shell import (
 from femo_tpu_torch.models.shell_module import plate_module
 from femo_tpu_torch.models.topopt import build_topopt_model
 from femo_tpu_torch.ops import bt_sweeps, spmv
-from femo_tpu_torch.ops.block_tridiag import BlockTridiagonalMatrix
+from femo_tpu_torch.ops.block_tridiag import (
+    BlockThomasFactor, BlockTridiagonalMatrix)
 from femo_tpu_torch.solvers.krylov import cg
 from femo_tpu_torch.solvers.linear import (
     BlockThomasKrylovFactorization, KrylovFactorization, LinearSolver)
@@ -500,8 +534,8 @@ def ratio(a, b):
     return None if a is None or b is None else a / b
 
 
-def jacobian_factor(info, which, dv0, iq0, em_load_steps):
-    """A Jacobian the step factors, block-Thomas factored on the card:
+def jacobian_matrix(info, which, dv0, iq0, em_load_steps):
+    """A Jacobian the step factors, in block-tridiagonal form on the card:
     "mm" at half the boundary displacement of dv0, "em" the first EM
     Newton iteration (A_z = 0, first load step) on that displacement."""
     tpl, jac = info["jac"][which]
@@ -515,7 +549,12 @@ def jacobian_factor(info, which, dv0, iq0, em_load_steps):
         u = torch.zeros(info["Vem"].n_dofs, dtype=dv0.dtype,
                         device=dv0.device)
         p = {"uhat": 0.5 * g, "Htable": Ht * s, "Jtable": Jt * s}
-    return tpl.matrix(jac(u, p)).factor()
+    return tpl.matrix(jac(u, p))
+
+
+def jacobian_factor(info, which, dv0, iq0, em_load_steps):
+    """jacobian_matrix's matrix, block-Thomas factored."""
+    return jacobian_matrix(info, which, dv0, iq0, em_load_steps).factor()
 
 
 def check_real_factors(info, dv0, iq0, refine, err):
@@ -570,7 +609,8 @@ def time_sweeps(fac, bb, label, plain_reps=50, profile=True):
     t.update({f"{k}_device": device_ms(
         fn, names.get(k), reps=min(plain_reps, 10) if plain[k] else 10)
         if profile else None for k, fn in fns.items()})
-    print(f"  time, {label} nb={nb} B={B} f64 (median of 50, plain "
+    print(f"  time, {label} nb={nb} B={B} {str(bb.dtype)[6:]} (median of "
+          f"50, plain "
           f"{plain_reps}, CUDA events): "
           f"K1 {t['K1']:.4f} ms vs plain {t['K1_plain']:.4f} ms, bound "
           f"{t['K1_bound'][0]:.4f} ms; K2 {t['K2']:.4f} ms vs plain "
@@ -597,7 +637,7 @@ def time_sweeps(fac, bb, label, plain_reps=50, profile=True):
                  f"({phases[k]}); {100 * share:.1f}% of the bound")
               + ("" if speed is None else
                  f"; {speed:.2f}x the plain version's speed"))
-    t["shape"] = dict(label=label, nb=nb, B=B)
+    t["shape"] = dict(label=label, nb=nb, B=B, dtype=str(bb.dtype)[6:])
     return t
 
 
@@ -650,9 +690,11 @@ def counted_path(fn, label):
         t, out = synced(fn)
     launches = dict(bt_sweeps.launches)
     print(f"  {label}: {t:.3f} s; K1 {launches['K1']}, K2 "
-          f"{launches['K2']} launches; {lr.calls['bt.factor']} factors, "
+          f"{launches['K2']} launches; {lr.calls['bt.factor']} factors "
+          f"(Thomas; {lr.calls['bt.factor_cr']} cyclic reduction), "
           f"{lr.calls['assemble.jacobian']} Jacobian assemblies, "
-          f"{lr.calls['bt.solve']} block solves")
+          f"{lr.calls['bt.solve']} block solves (Thomas; "
+          f"{lr.calls['bt.cr_solve']} cyclic reduction)")
     return t, out, launches, dict(lr.calls)
 
 
@@ -724,6 +766,103 @@ def phase_refine4(err):
             for which, (fac, bb) in check_real_factors(info, dv0, iq0, 4,
                                                        err).items()], \
         warm, info, dv0
+
+
+def stored_bytes(tensors):
+    """Bytes of the distinct storages behind `tensors` (views counted
+    once)."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def cr_bytes(fac):
+    """A cyclic-reduction factor's stored bytes (its levels and root)."""
+    return stored_bytes([a for lvl in fac.levels for a in lvl]
+                        + [fac.Dinv_root])
+
+
+def cr_flops(n2, B):
+    """The operations of factor_cr on n2 blocks of B: per level of m
+    blocks, m / 2 inverses (~2 B^3 each) and six products of m / 2 block
+    pairs (2 B^3 each), so 7 m B^3; 14 n2 B^3 over the levels."""
+    return 14 * n2 * B ** 3
+
+
+def cr_times(mat, label, reps=3):
+    """The CR factor of `mat` beside its Thomas factor, and their solves,
+    on the card: CUDA-event medians of `reps` calls (the solves 10; the
+    Thomas factor, a Python loop of seconds at the FSI anchor, one call
+    between syncs) and the profiler's device time per call of the CR
+    factor and solve (device_ms); the CR factor's
+    stored bytes, the solve's byte bound (the stored arrays read once,
+    3.35 TB/s), the factor's operations against the f64 peak; the two
+    solves' distance.  Returns the readings (ms)."""
+    nb, B = mat.nb, mat.B
+    n2 = 1 << (nb - 1).bit_length()
+    fac = mat.factor_cr()
+    t_th, th = synced(mat.factor)
+    b = torch.as_tensor(np.random.default_rng(61).standard_normal(mat.n),
+                        dtype=torch.float64, device=mat.D.device)
+    x_cr, x_th = fac.solve(b), th.solve(b)
+    nbytes = cr_bytes(fac)
+    t = dict(
+        factor_cr_ms=cuda_ms(lambda: mat.factor_cr(), reps=reps, warm=1),
+        factor_thomas_ms=1e3 * t_th,
+        factor_cr_device_ms=device_ms(lambda: mat.factor_cr(), reps=2,
+                                      tries=3),
+        solve_cr_ms=cuda_ms(lambda: fac.solve(b), reps=10, warm=2),
+        solve_cr_device_ms=device_ms(lambda: fac.solve(b), reps=10),
+        solve_thomas_ms=cuda_ms(lambda: th.solve(b), reps=10, warm=2),
+        stored_gib=nbytes / 2**30, n2=n2, nb=nb, B=B,
+        solve_bound_ms=bound_ms(nbytes, 2 * nbytes / 8, torch.float64)[0],
+        factor_flops=cr_flops(n2, B),
+        cr_vs_thomas=rel(x_cr, x_th))
+    dev = t["factor_cr_device_ms"]
+    t["factor_peak_share"] = ratio(
+        t["factor_flops"] / PEAK_OPS[torch.float64] * 1e3, dev)
+    print(f"  {label} (nb={nb} -> n2={n2}, B={B}): CR factor "
+          f"{t['factor_cr_ms']:.3f} ms (events; device "
+          f"{fmt_ms(dev, 3)}, {t['factor_flops']:.3e} flops"
+          + ("" if dev is None else
+             f", {100 * t['factor_peak_share']:.2f}% of the f64 peak")
+          + f") vs Thomas {t['factor_thomas_ms']:.3f} ms; stored "
+          f"{t['stored_gib']:.3f} GiB; CR solve {t['solve_cr_ms']:.4f} ms "
+          f"(device {fmt_ms(t['solve_cr_device_ms'])}, bound "
+          f"{t['solve_bound_ms']:.4f} ms on the stored bytes) vs Thomas "
+          f"(K1 + K2) {t['solve_thomas_ms']:.4f} ms; CR vs Thomas solve "
+          f"rel {t['cr_vs_thomas']:.3e}")
+    return t
+
+
+def phase_refine4_cr():
+    """The motor step at refine 4 in the oracle configuration with block
+    cyclic reduction (factor_method="cr"), f64: the first step with its
+    sweep launches counted (0: cyclic reduction launches no K1/K2),
+    against the JAX package's r4_cr entry (loss 1e-8, gradient 1e-6), a
+    warm step, the peak device memory; the CR factor and solve beside
+    Thomas's on the step's mesh-motion Jacobian (cr_times)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_build, (step, (dv0, iq0), info) = synced(lambda: build_motor_jit_step(
+        refine=4, device="cuda", factor_method="cr", **ORACLE_CFG))
+    cold, (loss, (g_dv, g_iq)), launches, _ = counted_path(
+        lambda: step(dv0, iq0), "first step, factor_method='cr'")
+    expect("K1/K2 launches (cyclic reduction)", launches, {"K1": 0, "K2": 0})
+    rl, rg = check_oracle("refine 4 cr", loss, g_dv, g_iq, motor_oracle(),
+                          "r4_cr", 1e-8, 1e-6)
+    warm = warm_seconds(step, dv0, iq0, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  build {t_build:.2f} s, first step {cold:.3f} s, warm "
+          f"{warm:.3f} s; peak device memory {peak:.3f} GiB")
+    t = cr_times(jacobian_matrix(info, "mm", dv0, iq0,
+                                 ORACLE_CFG["em_load_steps"]),
+                 "refine-4 mm Jacobian")
+    return dict(loss_rel=rl, grad_rel=rg, first_s=cold, warm_s=warm,
+                peak_gib=peak, launches=launches, times=t)
 
 
 # ---------------------------------------------------------------------------
@@ -2549,21 +2688,39 @@ FSI_SMALL_CPU = dict(n_shell=[4, 6], n_vlm=[2, 4], span=4.0, chord=1.0,
 #   rung, small: 10x the JAX package's own spread between its paths
 #     (FSI_PAIRS), at least 1e-12 (tools/shell_parity.py's rule);
 #   residual: the (4, 1680) composite residual at a random state against
-#     the JAX package's, max abs over max abs.
+#     the JAX package's, max abs over max abs;
+#   anchor_cr: the anchor with block cyclic reduction (f64 storage)
+#     against the port's Thomas run with f64 storage on the same card,
+#     tip and objective (relative), set before the first CR run: both
+#     solve the same assembled operator;
+#   anchor_cr_solve: the CR anchor's tip against the exact solution of its
+#     own last system.  It was to be held at anchor_solve's 1e-3 and read
+#     1.398e-3 on its first card run: with f64 factor storage pcg_tol
+#     stops at its 10 iterations with an f64 residual near 1e-2 (9.4e-3
+#     here), as the Thomas f64-storage run does, whose tip reads 1.4e-3
+#     from its exact solution (1e-3 holds the f32-storage run, 4.0e-4).
+#     The gate holds the same quantity to what f64 allows on this system:
+#     no farther from the exact tip than LAPACK's pivoted banded LU of the
+#     same system before refinement, a backward-stable f64 direct solve
+#     (read 2.783e-3 there).
 FSI_GATES = dict(conservation=1e-13, anchor_solve=1e-3,
                  anchor_f64=dict(tip=2e-2, objective=2e-2, grad=4e-2),
                  mid=dict(tip=5e-3, objective=5e-3),
                  mid_f64=dict(tip=2.5e-3, objective=2.5e-3, grad=5e-3),
                  rung_f64=dict(tip=1.5e-5, objective=1.5e-5, grad=6e-5),
-                 residual=1e-12)
-FSI_WARM = 2  # two warm calls: equal bits, and the last one's stages
+                 residual=1e-12, anchor_cr=1e-3)
+FSI_WARM = 1  # a warm call: equal bits with the first, and its stages
+FSI_CR_CALLS = 2  # calls of the CR anchor: equal bits, the last one timed
 
 
 def fsi_config(key):
     """The configuration of oracle entry `key` as driven here: an
     FSI_CONFIGS entry, one with f64 factor storage ("_f64") or the JAX
-    package's mixed inverses ("_mixed"), or the CPU tests' path."""
+    package's mixed inverses ("_mixed"), either with block cyclic
+    reduction ("_cr_f64"), or the CPU tests' path."""
     base, _, kind = key.partition("_")
+    cr = kind.startswith("cr_")
+    kind = kind[3:] if cr else kind
     if key.startswith("jit_rtol"):
         c, kind = dict(FSI_SMALL_CPU), key[len("jit_rtol_"):]
     elif key == "rung_residual":
@@ -2576,6 +2733,8 @@ def fsi_config(key):
         c["factor_store_dtype"] = None
     elif kind == "mixed":
         c["factor_compute_dtype"] = "mixed"
+    if cr:
+        c["factor_method"] = "cr"
     return c
 
 
@@ -2592,8 +2751,8 @@ def fsi_oracle(key):
             if k.startswith(f"{key}_") and not k.endswith("_config")}
 
 
-def fsi_build(c, device=None):
-    return build_fsi_jit_step(device=device or DEVICE,
+def fsi_build(c, device=None, template=None):
+    return build_fsi_jit_step(device=device or DEVICE, template=template,
                               **shell_kwargs({k: v for k, v in c.items()
                                               if k != "rounds"}))
 
@@ -2608,8 +2767,9 @@ def fsi_counted(label, f, rounds):
     just before and read just after, the stages counted by the step
     profiler's FSI ranges: (seconds, outputs, launches, stats, calls).
     K1 and K2 must each launch once per inner solve and once per
-    preconditioner application of its PCG polish; K4T once per adjoint
-    pass and block of the force-load operator Fm."""
+    preconditioner application of its PCG polish (with block Thomas; with
+    cyclic reduction, whose solves are batched torch calls, never); K4T
+    once per adjoint pass and block of the force-load operator Fm."""
     reset(bt_sweeps.launches)
     reset(spmv.launches)
     f["stats"].update(solves=0, precond=0, pcg_iters=[])
@@ -2619,7 +2779,8 @@ def fsi_counted(label, f, rounds):
     stats = dict(f["stats"])
     its = stats.pop("pcg_iters")
     stats["pcg_iters_hist"] = np.bincount(its).tolist() if its else []
-    sweeps = stats["solves"] + stats["precond"]
+    sweeps = (0 if f["step"].bt.method == "cr"
+              else stats["solves"] + stats["precond"])
     fm_blocks = len(f["step"].fm().blocks)
     want = {"K1": sweeps, "K2": sweeps,
             "K4T": f["step"].adj_passes * fm_blocks}
@@ -2632,7 +2793,7 @@ def fsi_counted(label, f, rounds):
           f"fill, {lr.calls['fsi.factor_core']} factor, "
           f"{lr.calls['fsi.vlm']} VLM solves, {lr.calls['fsi.rhs']} "
           f"right-hand sides")
-    if launches != want or min(launches.values()) == 0:
+    if launches != want or launches["K4T"] == 0 or stats["solves"] == 0:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     return t, out, launches, stats, dict(lr.calls)
 
@@ -2757,13 +2918,17 @@ def check_fsi_kernels(f, err, last):
     return t_sweeps, t_fm, k4_err, witness
 
 
-def fsi_solve_witness(f, mat, last):
+def fsi_solve_witness(f, mat, last, lu_bar=False):
     """The anchor's tip against the exact solution of its own last linear
     system (finalize's right-hand side at the converged lattice
     `last["disp_fluid"]`, on the operator `mat`), computed independently
     of the block-Thomas factor, its sweeps and the PCG polish: LAPACK's
     banded LU with partial pivoting on the host, refined with longdouble
-    residuals (tools/fsi_conditioning.py's direct_witness)."""
+    residuals (tools/fsi_conditioning.py's direct_witness).  The bar is
+    FSI_GATES' anchor_solve or, with lu_bar, the distance of the unrefined
+    pivoted LU's tip from the exact one: what a backward-stable f64
+    direct solve of the same system reaches (FSI_GATES' anchor_cr_solve
+    says why)."""
     st = f["step"]
     with torch.no_grad():
         _, trac = st.traction(last["disp_fluid"])
@@ -2773,17 +2938,19 @@ def fsi_solve_witness(f, mat, last):
     exact, tip = w["lu_tips"][-1], float(last["tip_disp"])
     w["rel"] = abs(tip - exact) / abs(exact)
     w["unrefined_rel"] = abs(w["lu_tips"][0] - exact) / abs(exact)
+    w["bar"] = w["unrefined_rel"] if lu_bar else FSI_GATES["anchor_solve"]
     print(f"  anchor tip {tip!r} vs the exact solution of its last system "
           f"{exact!r} (banded LU, kl={w['kl']}, {w['factor_s']:.1f} s, "
           f"refined with longdouble residuals "
           f"{[f'{v:.2e}' for v in w['lu_relres_ld']]}; {t:.1f} s in all): "
-          f"rel {w['rel']:.3e} (bar {FSI_GATES['anchor_solve']:.1e}); the "
+          f"rel {w['rel']:.3e} (bar {w['bar']:.3e}"
+          f"{', the unrefined LU' if lu_bar else ''}); the "
           f"unrefined LU rel {w['unrefined_rel']:.3e}; the run's solution's "
           f"residual longdouble {w['port_relres_ld']:.3e}, f64 "
           f"{w['port_relres_f64']:.3e}")
     if w["port_tip"] != tip:
         raise AssertionError("the witness's system is not the run's last")
-    if not w["rel"] <= FSI_GATES["anchor_solve"]:
+    if not w["rel"] <= w["bar"]:
         raise AssertionError("fsi anchor: the tip disagrees with the "
                              "exact solution of its own last system")
     return w
@@ -2813,21 +2980,129 @@ def fsi_anchor_f64(f, rounds):
     return r
 
 
+def f32_factor_sweeps(f, bt, label, seed):
+    """The equilibrated f32 factor of f's operator, made by f's factor
+    programs `bt` switched to factor_compute_dtype="float32" (the guarded f32
+    Thomas recursion on S A S, stored in f32): its factor-core seconds and
+    rescued blocks; K1/K2 in f32 against plain on it (Sinv, the scaled L,
+    C) at SWEEP_TOL f32, or 10x the plain solve's spread under reordered
+    sums where that is larger (step residuals SWEEP_TOL either way), two
+    launches bit for bit, and timed (time_sweeps).  These launches count
+    for no path."""
+    was = bt.method, bt.compute
+    bt.method, bt.compute = "thomas", "float32"
+    D, L, U = f["fill"](f["t0"])
+    t_core, core = synced(lambda: f["factor_core"](D, L, U))
+    mat, fac = bt.unpack((D, L, U) + tuple(core))
+    bt.method, bt.compute = was
+    rescued = int(bt.rescued)
+    print(f"  {label}: the f32 factor core {t_core:.3f} s, {rescued} "
+          f"block(s) rescued by the guard")
+    view = BlockThomasFactor(mat._like(D, fac.Lfac, U), fac.Sinv, fac.C)
+    nb, B = fac.Sinv.shape[:2]
+    bb = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (nb, B)), dtype=torch.float32, device=DEVICE)
+    err32 = {"K1": 0.0, "K2": 0.0}
+    check_sweeps(view, bb, f"{label} f32 factor nb={nb} B={B} float32",
+                 err32, spread=True)
+    t = time_sweeps(view, bb, f"{label} (f32 factor)", plain_reps=3,
+                    profile=False)
+    t["max_abs_err"] = err32
+    return t, dict(factor_core_s=t_core, rescued=rescued)
+
+
+def fsi_anchor_cr(tpl, thomas, t_sweeps):
+    """The anchor in its f64-storage configuration with block cyclic
+    reduction (fsi_config("anchor_cr_f64")), built on the anchor's
+    template `tpl`: one solve_with_grad with its launches counted (K4T as
+    with Thomas, no K1/K2) and FSI_CR_CALLS - 1 more with their stages
+    timed, equal bits between two calls, peak device memory; force
+    conservation (1e-13); the tip against the exact solution of its own
+    last system (fsi_solve_witness, at the unrefined LU's distance:
+    FSI_GATES' anchor_cr_solve); tip and objective against the
+    port's Thomas run with f64 factor storage on this card (`thomas`,
+    FSI_GATES' anchor_cr); the distance to the JAX package's anchor_f64
+    entry, printed and not gated (f64 fixes the anchor's tip only to
+    ~2e-2); the CR factor and solve beside Thomas's (cr_times; Thomas's
+    sweeps `t_sweeps`); then the anchor operator's f32 factor and K1/K2
+    in f32 on it (f32_factor_sweeps)."""
+    c = fsi_config("anchor_cr_f64")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_build, f = synced(lambda: fsi_build(c, template=tpl))
+    print(f"fsi anchor_cr_f64 {c}: build on the anchor's template "
+          f"{t_build:.2f} s")
+    t_first, out, launches, stats, calls = fsi_counted(
+        "cr solve_with_grad", f, c["rounds"])
+    outs = [out]
+    for i in range(FSI_CR_CALLS - 1):
+        with layer_ranges(FSI_LAYERS, sync=True) as lr:
+            t_warm, o = synced(lambda: f["solve_with_grad"](
+                f["t0"], rounds=c["rounds"]))
+        outs.append(o)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = {k: lr.seconds[f"fsi.{k}"]
+              for k in ("fill", "factor_core", "gs", "finalize", "adjoint")}
+    for k in ("tip_disp", "grad_thickness"):
+        same_bits(f"fsi anchor cr {k}, two calls", outs[0][k], outs[-1][k])
+    r = fsi_outputs(out)
+    print(f"  cr: warm solve_with_grad {t_warm:.3f} s (first {t_first:.3f} "
+          f"s); stages {({k: round(v, 3) for k, v in stages.items()})} s; "
+          f"peak device memory {peak:.3f} GiB; conservation "
+          f"{r['conservation']:.3e}; rel_delta {r['rel_delta']:.3e}, "
+          f"adj_delta {r['adj_delta']:.3e}")
+    if not r["conservation"] <= FSI_GATES["conservation"]:
+        raise AssertionError("fsi anchor cr: forces not conserved")
+    last = {k: out[k] for k in ("disp_fluid", "x", "tip_disp")}
+    del outs, o
+    D, L, U = f["fill"](f["t0"])
+    mat = f["step"].bt.matrix(D, L, U)
+    witness = fsi_solve_witness(f, mat, last, lu_bar=True)
+    vs = {k: abs(r[k] - thomas[k]) / abs(thomas[k])
+          for k in ("tip", "objective")}
+    bar = FSI_GATES["anchor_cr"]
+    print(f"  cr vs the port's Thomas f64-storage anchor on this card: tip "
+          f"{r['tip']!r} vs {thomas['tip']!r} rel {vs['tip']:.3e}, "
+          f"objective rel {vs['objective']:.3e} (bar {bar:.0e})")
+    if not max(vs.values()) <= bar:
+        raise AssertionError(f"fsi anchor cr differs from Thomas: {vs}")
+    r["vs_jax"] = fsi_against("fsi anchor_cr_f64 (not gated)", out,
+                              fsi_oracle("anchor_f64"), {})
+    times = cr_times(mat, "anchor operator", reps=2)
+    pair = t_sweeps["K1"] + t_sweeps["K2"]
+    print(f"  Thomas on this card: sweeps K1 + K2 {pair:.4f} ms a solve "
+          f"(events), warm solve_with_grad "
+          f"{thomas['warm_median_s']:.3f} s, factor core "
+          f"{thomas['stages_s']['factor_core']:.3f} s, peak "
+          f"{thomas['peak_gib']:.3f} GiB")
+    del mat, out
+    t32, f32 = f32_factor_sweeps(f, f["step"].bt, "fsi anchor operator",
+                                 59)
+    r.update(build_s=t_build, first_s=t_first, warm_s=t_warm,
+             stages_s=stages, peak_gib=peak, launches=launches, stats=stats,
+             calls=calls, witness=witness, vs_thomas=vs, times=times,
+             f32=f32)
+    return r, t32
+
+
 def phase_fsi(err):
     """The W7 anchor, build_fsi_jit_step(n_shell=(4, 13440), n_vlm=(4,
     32), span=30, thickness=0.05) in the JAX package's anchor solver
     (FSI_SOLVER), f64, on the card: the build (the host template), the
     first solve_with_grad with its launches and stages counted
     (fsi_counted), FSI_WARM warm ones (median; the last with its stage
-    seconds; two of them give equal bits), peak device memory, force
-    conservation; then on the anchor's own factor, operator and Fm the
+    seconds; the first and the last give equal bits), peak device memory,
+    force conservation; then on the anchor's own factor, operator and Fm the
     tip against the exact solution of its last system and the kernels
     against plain (check_fsi_kernels); the anchor with f64 factor storage
-    against the JAX package's anchor entry (fsi_anchor_f64); then the
-    same wing at (4, 6720)
-    and (4, 1680), f32 and f64 factor storage, against the JAX package's
-    values (oracles/fsi_oracle.npz) and, at (4, 1680), its residual at a
-    random state."""
+    against the JAX package's anchor entry (fsi_anchor_f64); the anchor
+    with block cyclic reduction on its template, and K1/K2 in f32 on the
+    anchor operator's f32 factor (fsi_anchor_cr); then the same wing at
+    (4, 6720) and (4, 1680), f32 and f64 factor storage, and at (4, 1680)
+    with cyclic reduction (f64 storage, at rung_f64's bars), against the
+    JAX package's values (oracles/fsi_oracle.npz) and, at (4, 1680), its
+    residual at a random state."""
     c = FSI_CONFIGS["anchor"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -2857,12 +3132,10 @@ def phase_fsi(err):
           f"{statistics.median(warm):.3f} s; stages of the last "
           f"{ {k: round(v, 3) for k, v in stages.items()} } s; peak "
           f"device memory {peak / 2**30:.3f} GiB")
-    same_bits("fsi anchor tip, two warm calls", outs[0]["tip_disp"],
-              outs[1]["tip_disp"])
-    same_bits("fsi anchor gradient, two warm calls",
-              outs[0]["grad_thickness"], outs[1]["grad_thickness"])
+    same_bits("fsi anchor tip, first and warm", out["tip_disp"],
+              outs[-1]["tip_disp"])
     same_bits("fsi anchor gradient, first and warm", out["grad_thickness"],
-              outs[0]["grad_thickness"])
+              outs[-1]["grad_thickness"])
     g = out["grad_thickness"]
     print(f"  tip {first['tip']!r} (the JAX package's TPU records: "
           f"17.66-17.69, PERF.md §6); force conservation "
@@ -2885,17 +3158,21 @@ def phase_fsi(err):
                nb=tpl.nb, B=tpl.B, **first)
     res["anchor_f64"] = fsi_anchor_f64(f, c["rounds"])
     del f
+    thomas = dict(res["anchor_f64"], warm_median_s=res["warm_median_s"],
+                  stages_s=stages, peak_gib=res["peak_gib"])
+    res["anchor_cr"], t_f32 = fsi_anchor_cr(tpl, thomas, t_sweeps)
+    del tpl
     gc.collect()
     torch.cuda.empty_cache()
-    for key in ("mid", "mid_f64", "rung", "rung_f64"):
+    for key in ("mid", "mid_f64", "rung", "rung_f64", "rung_cr_f64"):
         gc.collect()
         torch.cuda.empty_cache()
-        res[key], f = fsi_vs_jax(key, FSI_GATES.get(key)
+        res[key], f = fsi_vs_jax(key, FSI_GATES.get(key.replace("_cr", ""))
                                  or spread_bars(key))
         if key == "rung":
             res[key]["residual_vs_jax"] = fsi_residual_parity(f)
         del f
-    return res, t_sweeps, t_fm, k4_err
+    return res, t_sweeps, t_fm, k4_err, t_f32
 
 
 def phase_fsi_small():
@@ -2960,6 +3237,23 @@ DYN_GATES = dict(rung_f64=dict(tips=1e-4, J=1e-4, grad=1e-3),
                  w9_rung_f64=dict(tips=1e-4, J=1e-4, grad=1e-3,
                                   grad_forces=1e-3))
 DYN_STORAGE = ("rung", "rung_f64")
+# the rung with block cyclic reduction and with the equilibrated f32
+# factor (f64 storage); the same wing at 600 spanwise cells with the f32
+# factor.  Each run_with_grad is held to the JAX package's f64 entry of its
+# wing (DYN_REFS) at DYN_GATES' rung_f64 bars, but for the f32 factor at
+# the rung, whose reading is printed and not gated: there the f32 factor is
+# no preconditioner, in the JAX package either (PERF.md §6: ||A M b - b|| /
+# ||b|| reads 0.71 on the card at the rung, 78 for the JAX package's own at
+# 4,800 spanwise cells, and 32 PCG iterations leave the card's tips 10% off
+# the f64 answer).  It missed DYN_GATES on its first reading (tips rel 62),
+# and the same quantity is gated where the method is admissible in both
+# packages: the wing at 600 spanwise cells (||A M b - b|| / ||b|| 5e-3).
+DYN_FACTORS = {"rung_cr": dict(factor_method="cr"),
+               "rung_f32c": dict(factor_compute_dtype="float32"),
+               "span600_f32c": dict(factor_compute_dtype="float32",
+                                    n_shell=[4, 600])}
+DYN_REFS = {"rung_cr": "rung_f64", "rung_f32c": None,
+            "span600_f32c": "span600_f64"}
 
 
 def dyn_config(key):
@@ -2971,6 +3265,10 @@ def dyn_config(key):
                  pcg_iters=0, adj_passes=10, n_steps=3)
     elif key == "rung":
         c = dict(DYN_RUNG, factor_store_dtype="float32")
+    elif key in DYN_FACTORS:
+        c = dict(DYN_RUNG, factor_store_dtype=None, **DYN_FACTORS[key])
+    elif key == "span600_f64":
+        c = dict(DYN_RUNG, factor_store_dtype=None, n_shell=[4, 600])
     else:
         c = dict(DYN_RUNG, factor_store_dtype=None)
         if key == "w9_rung_f64":
@@ -3012,12 +3310,14 @@ def dyn_series(f, c):
 
 def dyn_want(c, grad):
     """K1/K2/K4T launches of a run (grad: run_with_grad) from the code: a
-    polished solve sweeps 2 + pcg_iters times (1 without the polish); a W8
-    forward step is fsi_iters solves, a backward step 1 + adj_passes
-    solves and adj_passes Fm^T products (Fm is one block); W9 one solve
-    a step each way."""
+    polished solve sweeps 2 + pcg_iters times (1 without the polish; 0
+    with cyclic reduction); a W8 forward step is fsi_iters solves, a
+    backward step 1 + adj_passes solves and adj_passes Fm^T products (Fm
+    is one block); W9 one solve a step each way."""
     n, p = c["n_steps"], c["pcg_iters"]
     per = 2 + p if p > 0 else 1
+    if c.get("factor_method") == "cr":
+        per = 0
     if c.get("external_loads"):
         solves, k4t = n * (1 + grad), 0
     else:
@@ -3048,8 +3348,10 @@ def dyn_counted(label, f, c, grad, series=None):
           f"{lr.calls['dyn.fill']} fill, {lr.calls['dyn.factor_core']} "
           f"factor, {lr.calls['dyn.vlm']} VLM solves, {lr.calls['dyn.rhs']} "
           f"right-hand sides")
-    if (launches != want or launches["K1"] == 0
-            or launches["K1"] != stats["solves"] + stats["precond"]):
+    sweeps = (0 if c.get("factor_method") == "cr"
+              else stats["solves"] + stats["precond"])
+    if (launches != want or stats["solves"] == 0
+            or launches["K1"] != sweeps):
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     return t, out, launches
 
@@ -3069,17 +3371,18 @@ def dyn_rel(a, b):
 
 
 def dyn_against(label, got, want, bars):
-    """got's values against the JAX package's `want`, each at its bar;
-    returns the readings."""
+    """got's values against the JAX package's `want`, each at its bar
+    (none: printed, not gated); returns the readings."""
     r = {k: dyn_rel(v, want[k]) for k, v in got.items()}
     step = np.abs(got["tips"] - want["tips"]) / np.abs(want["tips"])
     print(f"  {label} vs the JAX package: "
-          + "; ".join(f"{k} rel {v:.3e} (bar {bars[k]:.1e})"
+          + "; ".join(f"{k} rel {v:.3e} ("
+                      + (f"bar {bars[k]:.1e})" if k in bars else "not gated)")
                       for k, v in r.items())
           + f"; J {got['J']!r} (JAX {float(want['J'])!r}); last tips "
           f"{got['tips'][-2:].tolist()} (JAX {want['tips'][-2:].tolist()}); "
           f"tips rel by step {[f'{v:.1e}' for v in step]}")
-    if not all(r[k] <= bars[k] for k in r):
+    if not all(r[k] <= bars[k] for k in bars):
         raise AssertionError(f"{label} disagrees with the JAX package: {r}")
     return r
 
@@ -3116,6 +3419,54 @@ def dyn_rung(f, key, with_run):
     if not all(np.isfinite(v).all() for v in got.values()):
         raise AssertionError(f"fsi dynamic {key}: not finite")
     return r, out
+
+
+def dyn_factor_option(key, tpl):
+    """W8 with DYN_FACTORS[key] (on the W8 build's template `tpl` at the
+    rung): one counted run_with_grad against the JAX package's f64 entry
+    DYN_REFS[key] at DYN_GATES' rung_f64 bars (with none, the distance to
+    rung_f64 is printed, not gated); with CR, its factor and solve beside
+    Thomas's on the rung's operator (cr_times); with the f32 factor, the
+    blocks the guard rescued, and at the rung K1/K2 in f32 against plain
+    on its factor, timed (f32_factor_sweeps)."""
+    c = dyn_config(key)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b, f = synced(lambda: dyn_build(
+        c, template=tpl if c["n_shell"] == DYN_RUNG["n_shell"] else None))
+    print(f"fsi dynamic {key} {DYN_FACTORS[key]}: {f['n_cells']} cells, "
+          f"nb={f['tpl'].nb}; build {t_b:.2f} s")
+    t, out, launches = dyn_counted(f"{key} run_with_grad", f, c, True)
+    got = dyn_values(out)
+    n, ref = c["n_steps"], DYN_REFS[key]
+    r = dict(build_s=t_b, run_with_grad_s=t, launches=launches,
+             forward_step_s=out["forward_s"] / n,
+             backward_step_s=out["backward_s"] / n, J=got["J"],
+             grad_norm=float(np.linalg.norm(got["grad"])),
+             vs_jax=dyn_against(
+                 f"fsi dynamic {key}" + ("" if ref else " (not gated)"),
+                 got, dyn_oracle(ref or "rung_f64"),
+                 DYN_GATES["rung_f64"] if ref else {}))
+    print(f"  {key}: forward {r['forward_step_s']:.3f} s a step, backward "
+          f"{r['backward_step_s']:.3f} s a step")
+    if ref and not all(np.isfinite(v).all() for v in got.values()):
+        raise AssertionError(f"fsi dynamic {key}: not finite")
+    t32 = None
+    if key == "rung_cr":
+        del out
+        D, L, U = f["fill"](f["t0"])
+        r["times"] = cr_times(f["dyn"].bt.matrix(D, L, U), "W8 rung operator",
+                              reps=2)
+        del D, L, U
+    if "factor_compute_dtype" in DYN_FACTORS[key]:
+        r["rescued"] = int(f["dyn"].bt.rescued)
+        print(f"  {key}: the guard rescued {r['rescued']} block(s) of the "
+              f"f32 factor")
+    if key == "rung_f32c":
+        del out
+        t32, r["f32"] = f32_factor_sweeps(f, f["dyn"].bt,
+                                          "fsi dynamic rung operator", 67)
+    return r, t32
 
 
 def dyn_storage(got):
@@ -3174,7 +3525,11 @@ def phase_fsi_dynamic(err):
     memory; K1/K2 against plain on the rung's f64-stored factor and timed
     at its shape, K4/K4T against plain on its Fm and timed; W9 on the W8
     build's template under the synthetic restart series, one counted
-    run_with_grad at DYN_GATES; the eager class at (4, 6)."""
+    run_with_grad at DYN_GATES; W8 with block cyclic reduction and with
+    the equilibrated f32 factor on that template and with the f32 factor
+    at 600 spanwise cells, against the JAX package's f64 entries where
+    DYN_REFS names one, and K1/K2 in f32 on the rung's f32 factor
+    (dyn_factor_option); the eager class at (4, 6)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3248,8 +3603,67 @@ def phase_fsi_dynamic(err):
           f"{res['w9']['grad_norm']!r}, |grad_forces| "
           f"{res['w9']['grad_forces_norm']!r}")
     del f9, out9
+    t_f32 = None
+    for key in DYN_FACTORS:
+        res[key], t32 = dyn_factor_option(key, tpl)
+        t_f32 = t32 or t_f32
     res["eager"] = {k: dyn_eager(k) for k in ("eager", "eager_gust")}
-    return res, t_sweeps, t_fm, k4_err
+    return res, t_sweeps, t_fm, k4_err, t_f32
+
+
+FACETS_3D_N = 8  # create_unit_cube_mesh(8): 3,072 tets, 512 hexes
+
+
+def facet_form(device, cell):
+    """An interior-facet residual on create_unit_cube_mesh(FACETS_3D_N)
+    of `cell` (jumps, each side's value and gradient, the normal, g.h;
+    nonlinear, so its Jacobian depends on the state), compiled on
+    `device`."""
+    mesh = create_unit_cube_mesh(FACETS_3D_N, cell_type=cell)
+    V = FunctionSpace(mesh, ("CG", 1), device=device)
+    u = Function(V, "u")
+
+    def res(w, g):
+        total = jump(w.u) * jump(w.v) / g.h
+        for side, sgn in (("+", 1.0), ("-", -1.0)):
+            uh, vv = w.u(side), w.v(side)
+            total = total + sgn * (uh.val ** 2 * dot(vv.grad, g.n)
+                                   + dot(uh.grad, g.n) * vv.val)
+        return total
+
+    return compile_form(FormDef([dS(res)], coeffs=[u], test=V)), V.n_dofs
+
+
+def phase_facets_3d():
+    """Facet terms of 3D cells: the interior-facet residual of facet_form
+    and its Jacobian on the unit cube of tets and of hexes, assembled on
+    the card and on CPU tensors from one seeded state: relative 1e-12
+    (each entry's sum runs in another order on the card), and two
+    assemblies on the card with equal bits."""
+    out = {}
+    for cell in ("tet", "hex"):
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            cf, n = facet_form(dev, cell)
+            u = torch.as_tensor(np.random.default_rng(71).standard_normal(n),
+                                device=dev)
+            runs = [(cf.vector({"u": u}), cf.matrix({"u": u}, "u").to_dense())
+                    for _ in range(2 if dev == DEVICE else 1)]
+            got[dev] = runs
+        (r1, A1), (r2, A2) = got[DEVICE]
+        r0, A0 = got["cpu"][0]
+        same_bits(f"3D facets ({cell}) residual, two card runs", r1, r2)
+        same_bits(f"3D facets ({cell}) Jacobian, two card runs", A1, A2)
+        e = {"residual": rel(r1.cpu(), r0), "jacobian": rel(A1.cpu(), A0)}
+        term = cf.terms[0]
+        print(f"  3D facets ({cell}, unit cube {FACETS_3D_N}): {term.n_ent} "
+              f"interior facets, {n} dofs; card vs CPU tensors: residual rel "
+              f"{e['residual']:.3e}, Jacobian rel {e['jacobian']:.3e} (tol "
+              f"1e-12)")
+        if not max(e.values()) <= 1e-12:
+            raise AssertionError(f"3D facets ({cell}): card and CPU differ")
+        out[cell] = dict(e, facets=term.n_ent, dofs=n)
+    return out
 
 
 def kernel_entry(key, name, source, replaces, launches, err, t):
@@ -3272,6 +3686,7 @@ def sweep_shape(k, t):
     top-level numbers of its entry are those of the refine-1 mesh-motion
     factor; this list adds the refine-4 factors and the geometry."""
     return dict(t["shape"], **t[f"{k}_geometry"], ms=t[k],
+                max_abs_err=t.get("max_abs_err", {}).get(k),
                 device_ms=t[f"{k}_device"], plain_ms=t[f"{k}_plain"],
                 plain_device_ms=t[f"{k}_plain_device"],
                 bound_ms=t[f"{k}_bound"][0], bound_by=t[f"{k}_bound"][1],
@@ -3300,6 +3715,7 @@ def main():
                                   dv0, iq0, info1)
     t4, warm4, info4, dv4 = timed_phase("refine4", seconds, phase_refine4,
                                         err)
+    r4cr = timed_phase("refine4_cr", seconds, phase_refine4_cr)
     t_spmv, err_spmv, selftest = timed_phase("spmv", seconds, phase_spmv)
     w1_launches, _ = timed_phase("w1", seconds, phase_w1)
     timed_phase("w1_slsqp", seconds, phase_w1_slsqp)
@@ -3307,7 +3723,7 @@ def main():
     det = timed_phase("determinism", seconds, phase_determinism, info4,
                       dv4)
     del info4
-    paths = {"refine1_oracle": launches}
+    paths = {"refine1_oracle": launches, "refine4_cr": r4cr["launches"]}
     r4b = timed_phase("refine4_bench", seconds, phase_refine4_bench, warm4)
     paths["refine4_refactor3"] = r4b["launches"]
     r1b = timed_phase("refine1_bench", seconds, phase_refine1_bench, warm1)
@@ -3340,22 +3756,31 @@ def main():
         paths[f"shell_{key}"] = shell[key]["launches"]
     paths["shell_modal"] = modal["launches"]
     paths["shell_module"] = module["launches"]
-    fsi, t_fsi, t_fm, k4_fsi_err = timed_phase("fsi", seconds, phase_fsi,
-                                               err)
+    fsi, t_fsi, t_fm, k4_fsi_err, t_fsi32 = timed_phase(
+        "fsi", seconds, phase_fsi, err)
     fsi_small = timed_phase("fsi_small", seconds, phase_fsi_small)
     print("fsi summary: " + json.dumps(dict(fsi, small=fsi_small)))
-    dyn, t_dyn, t_dyn_fm, k4_dyn_err = timed_phase(
+    dyn, t_dyn, t_dyn_fm, k4_dyn_err, t_dyn32 = timed_phase(
         "fsi_dynamic", seconds, phase_fsi_dynamic, err)
     print("fsi dynamic summary: " + json.dumps(dyn))
+    facets = timed_phase("facets_3d", seconds, phase_facets_3d)
+    print("3D facets summary: " + json.dumps(facets))
     fsi_paths = {"fsi_anchor": fsi["launches"],
                  "fsi_anchor_f64": fsi["anchor_f64"]["launches"],
+                 "fsi_anchor_cr": fsi["anchor_cr"]["launches"],
                  **{f"fsi_{k}": fsi[k]["launches"]
-                    for k in ("mid", "mid_f64", "rung", "rung_f64")},
+                    for k in ("mid", "mid_f64", "rung", "rung_f64",
+                              "rung_cr_f64")},
                  "fsi_small": fsi_small["launches"],
                  # W8 at the 77k rung (run_with_grad, f32 and f64 factor
                  # storage) and W9 there
                  "fsi_dynamic": dyn["rung"]["launches"],
                  "fsi_dynamic_f64": dyn["rung_f64"]["launches"],
+                 # W8 with cyclic reduction and with the f32 factor
+                 "fsi_dynamic_cr": dyn["rung_cr"]["launches"],
+                 "fsi_dynamic_f32c": dyn["rung_f32c"]["launches"],
+                 "fsi_dynamic_span600_f32c":
+                     dyn["span600_f32c"]["launches"],
                  "fsi_w9": dyn["w9"]["launches"]}
     paths.update(fsi_paths)
     paths.update({"fsi_dynamic_run": dyn["rung"]["run_launches"],
@@ -3372,6 +3797,7 @@ def main():
                           + [slice_c[p]["err"][k] for p in
                              ("w1_weak", "w2", "topopt")])
     print("motor summary: " + json.dumps({
+        "refine4_cr": r4cr,
         "refine4_refactor3": r4b, "refine1": r1b, "lu_basis": lb,
         "eager_model": eager, "unstructured": un}))
 
@@ -3384,7 +3810,8 @@ def main():
                      plain_device_ms=t[f"{k}_plain_device"],
                      library_device_ms=None, bound=t[f"{k}_bound"])),
         shapes=[sweep_shape(k, ts)
-                for ts in [t] + t4 + [t_weak] + t_shell + [t_fsi, t_dyn]],
+                for ts in [t] + t4 + [t_weak] + t_shell
+                + [t_fsi, t_dyn, t_dyn32, t_fsi32]],
         launches_by_path=dict({p: n[k] for p, n in paths.items()},
                               w1_weak=slice_c["w1_weak"]["launches"][k]))
         for k, name, line in (("K1", "bt_fwd_sweep", 60),

@@ -1,6 +1,6 @@
 """Assembly engine: gather -> per-entity kernel -> owner-table scatter
 (port of femo_tpu/fea/assemble.py: cell terms, and interior- and
-exterior-facet terms on intervals, triangles and quads).
+exterior-facet terms on every cell type).
 
 * Topology and tabulation are precomputed host-side in numpy and copied
   to the form's device once.
@@ -26,16 +26,20 @@ tangential gradients K = G^{-1} J^T with G = J^T J, expose the geometry
 Jacobian to cell integrands as `g.J` (local frames), and give the edges
 of a 2D cell in 3D their in-plane outward normal t x (J0 x J1).
 
+Facets of 3D cells: the two sides of an interior triangle facet (tet)
+integrate at matching points through the 6 vertex permutations of the
+reference facet, those of a quad facet (hex) through its 8 dihedral
+symmetries (`_QUAD_SYMS`); the normal is the cross product of the two
+physical tangents at each quadrature point.
+
 `chunk=` on residual and matrix assembly runs the entity loop in slices
 (every domain; the JAX package chunks cell terms, and exterior facets in
 matrices).
-
-Not ported (raise NotImplementedError): facet terms of 3D cells (tets,
-and the hex facets' dihedral variants).
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Sequence
@@ -46,7 +50,7 @@ from torch.func import grad as fgrad, jacfwd, vmap
 
 from ..config import config
 from ..elements.element import (
-    CELL_FACETS, REFERENCE_VERTICES, geometry_element,
+    CELL_FACETS, FACET_CELL, REFERENCE_VERTICES, geometry_element,
 )
 from ..elements.quadrature import cell_rule
 from ..mesh.mesh import Mesh
@@ -54,6 +58,83 @@ from ..ops.scatter import OwnerTable
 from ..ops.spmv import ElementSpMVPlan, element_matvec
 from .forms import FormDef, Integral, Q, QR, integrand_device
 from .space import FunctionSpace
+
+
+# Dihedral symmetries of the reference quad facet, as assignments of the
+# original corner index (tensor order: 0=(0,0) 1=(1,0) 2=(0,1) 3=(1,1)) to
+# each parameter corner (c00, c10, c01, c11).  Diagonal pairs {0,3}/{1,2}
+# are preserved, so each symmetry is a valid (bilinear) reparametrization.
+_QUAD_SYMS = (
+    (0, 1, 2, 3), (0, 2, 1, 3),
+    (1, 0, 3, 2), (1, 3, 0, 2),
+    (2, 0, 3, 1), (2, 3, 0, 1),
+    (3, 1, 2, 0), (3, 2, 1, 0),
+)
+# parameter-corner adjacency (neighbours) and diagonal, by corner position
+_QUAD_NB = np.array([[1, 2], [0, 3], [0, 3], [1, 2]])
+_QUAD_DIAG = np.array([3, 2, 1, 0])
+# the vertex permutations of a triangle facet
+_TRI_PERMS = list(itertools.permutations(range(3)))
+
+
+def _facet_variants(cell_type):
+    """Every parametrization of every facet of the reference cell, as an
+    affine map (origin o, tangent frame T), pts = o + fqp @ T, listed
+    local facet by local facet: an edge both ways (a point twice, to keep the lf * 2 +
+    orient indexing), a triangle facet in its 6 vertex permutations, a
+    quad facet in its 8 dihedral symmetries (an affine map is exact: the
+    reference facets are parallelograms, and the symmetries keep the
+    diagonal pairs).  T doubles as the reference tangent frame for the
+    normal."""
+    rv = REFERENCE_VERTICES[cell_type]
+    out = []
+    for lf, fv in enumerate(CELL_FACETS[cell_type]):
+        verts = rv[list(fv)]
+        if cell_type == "interval":
+            perms = [(0,), (0,)]
+        elif cell_type == "tet":
+            perms = _TRI_PERMS
+        elif cell_type == "hex":
+            perms = _QUAD_SYMS
+        else:
+            perms = [(0, 1), (1, 0)]
+        for p in perms:
+            o = verts[p[0]]
+            out.append((o, np.stack([verts[q] - o for q in p[1:3]])
+                        if len(p) > 1 else np.zeros((0, 1))))
+    return out
+
+
+def _facet_variant(mesh, cells, lf, fverts):
+    """The variant index (into _facet_variants) under which each facet's
+    side, cell `cells` with local facet `lf`, integrates at the points of
+    the facet's canonical parametrization: the sorted vertex ids for an
+    edge or a triangle, the lowest id at (0, 0) and its lower-id
+    neighbour at (1, 0) for a quad."""
+    lfs = np.asarray(CELL_FACETS[mesh.cell_type])
+    if mesh.cell_type == "interval":
+        return lf * 2
+    gl = mesh.cells[cells[:, None], lfs[lf]]  # the side's facet vertex ids
+    if mesh.cell_type == "tet":
+        perm = np.argsort(gl, axis=1)
+        idx = np.array([_TRI_PERMS.index(tuple(q)) for q in perm], np.int64)
+        return lf * 6 + idx
+    if mesh.cell_type == "hex":
+        m = np.argmin(gl, axis=1)
+        nbp = _QUAD_NB[m]  # the lowest corner's neighbour positions
+        nbi = np.take_along_axis(gl, nbp, axis=1)
+        swap = nbi[:, 0] > nbi[:, 1]
+        lo = np.where(swap, nbp[:, 1], nbp[:, 0])
+        hi = np.where(swap, nbp[:, 0], nbp[:, 1])
+        tgt = np.take_along_axis(
+            gl, np.stack([m, lo, hi, _QUAD_DIAG[m]], axis=1), axis=1)
+        sym = np.full(len(gl), -1, np.int64)
+        for k, q in enumerate(_QUAD_SYMS):
+            sym[(gl[:, list(q)] == tgt).all(axis=1)] = k
+        assert (sym >= 0).all()
+        return lf * 8 + sym
+    # edges: does this side's local edge run against the sorted facet key?
+    return lf * 2 + (gl[:, 0] != fverts[:, 0]).astype(np.int64)
 
 
 def _det_small(G):
@@ -183,30 +264,12 @@ class _Term:
 
         if self.domain not in ("interior_facet", "exterior_facet"):
             raise ValueError(f"unknown integral domain {self.domain!r}")
-        if mesh.cell_type not in ("interval", "triangle", "quad"):
-            raise NotImplementedError(
-                "facet terms are ported for intervals, triangles and quads")
-        point = mesh.tdim == 1
-        if point:  # the facets of an interval are its end points
+        if mesh.tdim == 1:  # the facets of an interval are its end points
             fqp, fqw = np.zeros((1, 0)), np.ones(1)
         else:
-            fqp, fqw = cell_rule("interval", qdeg)
+            fqp, fqw = cell_rule(FACET_CELL[mesh.cell_type], qdeg)
         self.qw = tf(fqw)
-        # variants: every facet of the reference cell in both orientations
-        # (an edge's two directions; a point twice, to keep lf * 2 + orient
-        # indexing), so the two sides of an interior facet integrate at
-        # matching physical points; each is an affine map pts = o + fqp @ T,
-        # and T doubles as the reference tangent frame for the normal
-        rv = REFERENCE_VERTICES[mesh.cell_type]
-        lfs_t = CELL_FACETS[mesh.cell_type]
-        vmaps = []
-        for lf in range(len(lfs_t)):
-            verts = rv[list(lfs_t[lf])]
-            if point:
-                vmaps += [(verts[0], np.zeros((0, 1)))] * 2
-            else:
-                vmaps.append((verts[0], (verts[1] - verts[0])[None]))
-                vmaps.append((verts[1], (verts[0] - verts[1])[None]))
+        vmaps = _facet_variants(mesh.cell_type)
         variants = [o[None, :] + fqp @ T for (o, T) in vmaps]
         self.Tref = tf(np.stack([T for (_, T) in vmaps]))
 
@@ -227,19 +290,12 @@ class _Term:
         self.n_ent = len(fids)
         fc = mesh.facet_cells[fids]  # (ne, 2)
         fl = mesh.facet_local[fids]
-        fverts = mesh.facets[fids]  # sorted global vertex pairs
-        lfs = np.asarray(CELL_FACETS[mesh.cell_type])
+        fverts = mesh.facets[fids]  # sorted global vertex tuples
 
         def side_data(side):
             cells = fc[:, side]
-            lf = fl[:, side]
-            # orientation bit: does this side's local edge run against the
-            # sorted facet key?
-            local_first = mesh.cells[cells, lfs[lf, 0]]
-            orient = (local_first != fverts[:, 0]).astype(np.int32)
-            if point:
-                orient[:] = 0
-            return cells.astype(np.int32), lf * 2 + orient
+            return cells.astype(np.int32), _facet_variant(
+                mesh, cells, fl[:, side], fverts)
 
         ct = mesh.cell_tags
         # owning-cell subdomain tags (g.ctag), for material-dispatched
@@ -308,16 +364,25 @@ class _Term:
 
     @staticmethod
     def _facet_geom(J, Tv, x, cent0):
-        """Per-qp outward unit normal (nq, gdim) and facet measure (nq,):
-        on an edge, tangent t = J @ Tv^T and normal = rot(t) in 2D, the
-        in-plane normal t x (J0 x J1) on a 2D cell in 3D; on the point
-        facet of an interval, the unit vector from the cell centroid and
-        measure 1.  Oriented away from the side-0 cell centroid."""
+        """Per-qp outward unit normal (nq, gdim) and facet measure (nq,)
+        from the physical tangents t = J @ Tv^T: on a triangle or quad
+        facet of a 3D cell the normal t0 x t1 and measure |t0 x t1|
+        (exact per point, also on distorted bilinear hex facets); on an
+        edge, normal = rot(t) in 2D, the in-plane normal t x (J0 x J1) on
+        a 2D cell in 3D; on the point facet of an interval, the unit
+        vector from the cell centroid and measure 1.  Oriented away from
+        the side-0 cell centroid."""
         if Tv.shape[0] == 0:
             n = x - cent0[None, :]
             n = n / torch.linalg.norm(n, dim=-1, keepdim=True)
             return n, torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
-        t1 = torch.einsum("qit,ft->qif", J, Tv)[:, :, 0]
+        t = torch.einsum("qit,ft->qif", J, Tv)
+        if Tv.shape[0] == 2:
+            nv = torch.linalg.cross(t[:, :, 0], t[:, :, 1])
+            a = torch.linalg.norm(nv, dim=-1)
+            sgn = torch.sign(torch.einsum("qi,qi->q", nv, x - cent0[None, :]))
+            return nv / a[:, None] * sgn[:, None], a
+        t1 = t[:, :, 0]
         a = torch.linalg.norm(t1, dim=-1)
         if J.shape[1] == 2:
             n = torch.stack([t1[:, 1], -t1[:, 0]], dim=-1) / a[:, None]

@@ -27,8 +27,8 @@ converged state plus a VJP of the residual with respect to the inputs.
   block-tridiagonal template and the block-Thomas factor, with Shamanskii
   factor reuse (`refactor_every`, `freeze_operator`) and Jacobi scaling
   (the port of `implicit_solve_bt_jit`), the symmetric factor-reuse
-  adjoint and the factor storage options.  factor_method="cr" is not
-  ported.
+  adjoint, the factor storage options and block cyclic reduction
+  (factor_method="cr").
 """
 
 from __future__ import annotations
@@ -342,6 +342,12 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
     CUDA tensors) and, with `pcg_iters > 0`, polishes the step with
     `pcg_fixed` against the fresh operator.
 
+    factor_method: "thomas" or "cr", block cyclic reduction
+    (`BlockTridiagonalMatrix.factor_cr` / `factor_t_cr`: batched levels,
+    no sweep kernel), which, as in the JAX package, ignores
+    factor_store_dtype and spd and refuses refactor_every > 1 and
+    adjoint="reuse_symmetric".
+
     jacobi_scale: factor the equilibrated S A S and precondition with
     M(b) = S F'^{-1} S b.
 
@@ -368,29 +374,35 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
     residual is linear in u and the operator symmetric (an energy
     Hessian such as the RM shell's), and it saves one fill and one
     factor per gradient; it requires newton_iters = load_steps = 1 and
-    refactor_every = 1.  Only factor_method="thomas" is ported.  The JAX
-    package's guard against
+    refactor_every = 1 and Thomas.  The JAX package's guard against
     `sweeps="pallas"` in f64 without a PCG polish has no counterpart: the
     Pallas sweeps ran in f32, the port's CUDA sweeps run in the working
     dtype.
     """
-    if factor_method != "thomas":
-        raise ValueError(f"factor_method={factor_method!r}: only 'thomas' "
-                         "is ported")
+    if factor_method not in ("thomas", "cr"):
+        raise ValueError(f"factor_method={factor_method!r}: 'thomas' or "
+                         "'cr'")
+    cr = factor_method == "cr"
     if adjoint not in ("refactor", "reuse_symmetric"):
         raise ValueError(f"adjoint={adjoint!r}: 'refactor' or "
                          "'reuse_symmetric'")
-    sym_reuse = adjoint == "reuse_symmetric"
-    if sym_reuse and (load_steps * newton_iters != 1 or refactor_every != 1):
-        raise ValueError(
-            "adjoint='reuse_symmetric' requires a single linear solve "
-            "(newton_iters=load_steps=1, refactor_every=1)")
     refactor_every = int(refactor_every)
     if refactor_every < 1:
         raise ValueError(f"refactor_every must be >= 1, got {refactor_every}")
+    sym_reuse = adjoint == "reuse_symmetric"
+    if sym_reuse and (load_steps * newton_iters != 1 or refactor_every != 1
+                      or cr):
+        raise ValueError(
+            "adjoint='reuse_symmetric' requires a single linear solve "
+            "(newton_iters=load_steps=1, refactor_every=1) and "
+            "factor_method='thomas'")
     if freeze_operator and refactor_every == 1:
         raise ValueError("freeze_operator requires refactor_every > 1 "
                          "(with refactor_every=1 nothing is frozen)")
+    if refactor_every > 1 and cr:
+        raise ValueError("refactor_every > 1 requires "
+                         "factor_method='thomas' (the reuse carry is "
+                         "the Thomas factor's (L, Sinv, C) arrays)")
     if refactor_every > 1 and pcg_iters == 0:
         raise ValueError(
             "refactor_every > 1 requires pcg_iters > 0: intermediate "
@@ -407,6 +419,8 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
         """(the factor of mat, or of its equilibrated copy, and the scale
         s, None without jacobi_scale)."""
         smat, s = mat.jacobi_scaled() if jacobi_scale else (mat, None)
+        if cr:
+            return (smat.factor_t_cr() if transpose else smat.factor_cr()), s
         fac = (smat.factor_t(factor_store_dtype, spd) if transpose
                else smat.factor(factor_store_dtype, spd))
         return fac, s
@@ -439,6 +453,10 @@ def implicit_solve_bt(residual_fn: Callable, jac_blocks_fn: Callable,
                 u = step(u, Rc, mat, fac.solve)
                 continue
             mat = template.matrix(jac_blocks_fn(u, p))
+            if cr:
+                M = scaled(mat, *factored(mat))
+                u = step(u, Rc, mat, M)
+                continue
             if refactor:
                 fac, s = factored(mat)
                 carry = (fac.mat.L, fac.Sinv, fac.C, s)

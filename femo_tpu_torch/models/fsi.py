@@ -51,10 +51,16 @@ arguments, so the programs take no `consts`.  `factor_compute_dtype=
 takes no `mixed_ns` / `mixed_tol`.  The dynamic trajectory adjoint keeps
 its per-step checkpoints (u, theta, v) on the device, where the JAX
 package moves them to the host to free TPU memory (twelve states of the
-662,442-dof rung are ~0.2 GB).  The dynamic builder takes a `template`
-(an earlier build's block-tridiagonal template of the same wing), which
-the JAX builder does not.  `factor_method="cr"` and
-`factor_compute_dtype="float32"` belong to ROADMAP slice D2b and raise.
+662,442-dof rung are ~0.2 GB).  Both builders take a `template` (an
+earlier build's block-tridiagonal template of the same wing), which the
+JAX builders do not.
+
+Factor options of both builders (`_BTPrograms`): `factor_method="cr"`,
+block cyclic reduction (batched levels; its solves launch no K1/K2), and
+`factor_compute_dtype="float32"`, the guarded f32 Thomas recursion on the
+Jacobi-equilibrated operator whose solves run K1/K2 in f32; both are
+polished against the f64 operator.  The JAX package refuses "cr" with
+"float32", and so does the port.
 """
 from __future__ import annotations
 
@@ -74,14 +80,11 @@ from ..graph.fixed_point import fixed_point_solve, fixed_point_solve_jit
 from ..mesh.generators import create_rectangle_mesh
 from ..mesh.mesh import Mesh
 from ..ops.block_tridiag import (
-    BlockThomasFactor, BlockTridiagonalMatrix, BlockTridiagTemplate,
-    pcg_fixed, pcg_tol)
+    BlockCyclicFactor, BlockThomasFactor, BlockTridiagonalMatrix,
+    BlockTridiagTemplate, pcg_fixed, pcg_tol)
 from .coupling import NodalMap, force_map_mass_weighted
 from .shell import RMShellModel, local_frame, shell_energy_density
 from .vlm import VLM, flat_wing_lattice_np
-
-D2B = "ROADMAP slice D2b"
-
 
 def _wing_shell_system(n_shell, span, chord, E, nu, rho_s, device):
     """The cantilever plate wing: (chord x span) triangles in the z = 0
@@ -211,28 +214,46 @@ def build_wing_fsi(span=4.0, chord=1.0, n_shell=(8, 12), n_vlm=(3, 8),
                 disp_map=disp_map, force_map=force_map, n_lat=n_lat)
 
 
-def _composite_bt_template(state):
-    """RCM block-tridiagonal template of the (u, theta) composite
-    Jacobian, from its pattern (host dofmaps, no assembly)."""
-    return BlockTridiagTemplate(state.jacobian_pattern(), free=state.free,
-                                device=state.device)
+def _template(state, template, n_dofs):
+    """The RCM block-tridiagonal template of the (u, theta) composite
+    Jacobian, from its pattern (host dofmaps, no assembly), or
+    `template`, an earlier build's of the same wing."""
+    if template is None:
+        return BlockTridiagTemplate(state.jacobian_pattern(),
+                                    free=state.free, device=state.device)
+    if template.n != n_dofs:
+        raise ValueError(f"template is for {template.n} dofs, this wing has "
+                         f"{n_dofs}")
+    return template
 
 
 class _BTPrograms:
     """fill + factor of the composite operator (the JAX package's
-    `_bt_factor_programs`, Thomas factor only), as separate stages that
-    share the (D, L, U, Sinv, C) carry.  D/L/U stay in the working dtype
-    (f64) whatever the factor storage: rounding the operator to f32 is
-    what the RM composite cannot tolerate; only the preconditioner's Sinv
-    and C are rounded to `store` (kept in the working dtype, see
-    `BlockTridiagonalMatrix.factor`), and the PCG polish runs against the
-    f64 operator.  (The rounded factor is not symmetric, so on
-    ill-conditioned wings the polish stagnates above a tight rtol.)"""
+    `_bt_factor_programs`), as separate stages that share one carry:
+    (D, L, U, Sinv, C) for block Thomas, (D, L, U, levels, Dinv_root) for
+    block cyclic reduction (`method` "cr").  D/L/U stay in the working
+    dtype (f64) whatever the factor: rounding the operator to f32 is what
+    the RM composite cannot tolerate, and the PCG polish runs against the
+    f64 operator.
 
-    def __init__(self, tpl, jac_blocks, n_dofs, free, bv, store):
+    * `compute` None or "mixed": the factor of the raw operator in the
+      working dtype, its stored arrays rounded to `store` (kept in the
+      working dtype, see `BlockTridiagonalMatrix.factor`); "mixed"
+      computes the plain inverses.  (The rounded factor is not
+      symmetric, so on ill-conditioned wings the polish stagnates above a
+      tight rtol.)
+    * `compute` "float32" (Thomas only): the whole recursion in f32 on
+      the Jacobi-equilibrated operator S A S, guarded
+      (`factor(guard=True)`; `rescued` counts the rescued blocks of the
+      last factor), stored in f32, and solved by the f32 sweeps between
+      the scalings (`BlockThomasFactor` sweep_dtype, scale, Lfac)."""
+
+    def __init__(self, tpl, jac_blocks, n_dofs, free, bv, store,
+                 method="thomas", compute=None):
         self.tpl, self.jac_blocks = tpl, jac_blocks
         self.n_dofs, self.free, self.bv = n_dofs, free, bv
-        self.store = store
+        self.store, self.method, self.compute = store, method, compute
+        self.rescued = 0
         self._proto = None
 
     def fill(self, tarr):
@@ -249,10 +270,37 @@ class _BTPrograms:
                 D, L, U, self.tpl.perm_full, self.tpl.n)
         return self._proto._like(D, L, U)
 
+    @staticmethod
+    def _equilibrated(D, L, U=None):
+        """The symmetric Jacobi scale sb (nb, B) = 1 / sqrt(|diag D|), 1
+        where the diagonal is 0 (the JAX package's `_bt_equil`), and the
+        blocks of S A S in f32: L alone (what the sweeps read), or D, L
+        and U (what the factor reads) when U is given."""
+        dg = torch.diagonal(D, dim1=1, dim2=2).abs()
+        sb = torch.where(dg > 0, 1.0 / torch.sqrt(torch.where(dg > 0, dg,
+                                                              1.0)), 1.0)
+        z = torch.zeros_like(sb[:1])
+        f = torch.float32
+        Ls = (L * sb[:, :, None] * torch.cat([z, sb[:-1]])[:, None, :]).to(f)
+        if U is None:
+            return sb, Ls
+        return ((D * sb[:, :, None] * sb[:, None, :]).to(f), Ls,
+                (U * sb[:, :, None] * torch.cat([sb[1:], z])[:, None, :]
+                 ).to(f))
+
     def factor_core(self, D, L, U):
-        """(Sinv, C): the block-Thomas factor of the SPD operator."""
+        """The factor of the SPD operator: (Sinv, C), or (levels,
+        Dinv_root) for cyclic reduction."""
         with torch.no_grad():
-            fac = self.matrix(D, L, U).factor(self.store, spd=True)
+            if self.method == "cr":
+                fac = self.matrix(D, L, U).factor_cr(self.store, spd=True)
+                return fac.levels, fac.Dinv_root
+            if self.compute == "float32":
+                fac = self.matrix(*self._equilibrated(D, L, U)).factor(
+                    spd=True, guard=True)
+                self.rescued = fac.rescued
+            else:
+                fac = self.matrix(D, L, U).factor(self.store, spd=True)
         return fac.Sinv, fac.C
 
     def factor(self, tarr):
@@ -260,19 +308,35 @@ class _BTPrograms:
         return (D, L, U) + tuple(self.factor_core(D, L, U))
 
     def unpack(self, carry):
-        D, L, U, Sinv, C = carry
+        """(the f64 operator, the factor's solve object).  For the f32
+        factor only the scale and the scaled L are recomputed from the
+        carry (the scaled D and U are not needed by the sweeps)."""
+        D, L, U, F0, F1 = carry
         mat = self.matrix(D, L, U)
-        return mat, BlockThomasFactor(mat, Sinv, C)
+        if self.method == "cr":
+            return mat, BlockCyclicFactor(
+                mat, F0, F1, 1 << max(mat.nb - 1, 0).bit_length())
+        if self.compute != "float32":
+            return mat, BlockThomasFactor(mat, F0, F1)
+        sb, Ls = self._equilibrated(D, L)
+        return mat, BlockThomasFactor(mat, F0, F1, sweep_dtype=torch.float32,
+                                      scale=sb, Lfac=Ls)
 
 
-def _unported(factor_method, factor_compute_dtype):
-    if factor_method == "cr":
-        raise NotImplementedError(
-            f"factor_method='cr' (block cyclic reduction) is {D2B}")
-    if factor_compute_dtype == "float32":
-        raise NotImplementedError(
-            "factor_compute_dtype='float32' (the equilibrated f32 factor "
-            f"recursion and mixed-dtype sweeps) is {D2B}")
+def _check_factor_options(factor_method, factor_compute_dtype):
+    """The builders' factor options, refused as the JAX package refuses
+    them."""
+    if factor_method not in ("thomas", "cr"):
+        raise ValueError(f"factor_method must be 'thomas' or 'cr', "
+                         f"got {factor_method!r}")
+    if factor_compute_dtype not in (None, "mixed", "float32"):
+        raise ValueError(f"factor_compute_dtype must be None, 'mixed' or "
+                         f"'float32', got {factor_compute_dtype!r}")
+    if factor_method == "cr" and factor_compute_dtype == "float32":
+        raise ValueError(
+            "factor_compute_dtype='float32' requires factor_method='thomas' "
+            "(the CR factor has no equilibrated-scale solve path); "
+            "factor_compute_dtype='mixed' works with both")
 
 
 def _aitken(om, r, r_prev, first):
@@ -321,8 +385,9 @@ class _FSIStep:
         return x0
 
     def inv(self, mat, fac, b):
-        """K_c^{-1} b: one block-Thomas solve (K1 + K2 on CUDA tensors;
-        sweeps "scan" and "pallas" alike) and the PCG polish."""
+        """K_c^{-1} b: one factor solve (block Thomas: K1 + K2 on CUDA
+        tensors, sweeps "scan" and "pallas" alike; or cyclic reduction)
+        and the PCG polish."""
         self.stats["solves"] += 1
         return self._polish(mat, b, fac.solve(b), fac.solve)
 
@@ -513,13 +578,14 @@ def build_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
                        factor_compute_dtype=None,
                        accel: str = "none",
                        pcg_rtol: float | None = None,
-                       pcg_maxiter: int = 60, device=None):
+                       pcg_maxiter: int = 60, device=None, template=None):
     """The reference-scale static aeroelastic FSI iteration on `device`
     (default `config.device`, the card).
 
-    Stages sharing one factor carry (D, L, U, Sinv, C):
+    Stages sharing one factor carry (D, L, U, Sinv, C), or (D, L, U,
+    levels, Dinv_root) with factor_method="cr":
 
-      factor(tarr) -> carry            fill + one block-Thomas factor
+      factor(tarr) -> carry            fill + one factor
       gs(carry, tarr, d)               gs_inner damped Gauss-Seidel passes
           -> (d_new, rel_delta)          (VLM + right-hand side + solves
                                          per pass; no refactor)
@@ -528,19 +594,25 @@ def build_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
       adjoint(carry, tarr, x)          coupled IFT adjoint
           -> (J, dJ/dt, adj_delta)
 
-    (`fill(tarr) -> (D, L, U)` and `factor_core(D, L, U) -> (Sinv, C)`
-    are the factor's two halves.)  Matches
+    (`fill(tarr) -> (D, L, U)` and `factor_core(D, L, U) -> (Sinv, C)` or
+    (levels, Dinv_root) are the factor's two halves.)  Matches
     run_aeroelasticity_static_w_feedback.py:346-355 at its :55 mesh scale
     with n_shell=(4, 13440), n_vlm=(4, 32), span=30, thickness=0.05.
 
     Every inner solve is a block-Thomas solve (K1 then K2 on CUDA
     tensors, for sweeps "scan" and "pallas" alike: the CUDA sweeps are
-    the port of the Pallas ones) followed by `pcg_iters` fixed PCG
+    the port of the Pallas ones) or a cyclic-reduction solve
+    (factor_method="cr"), followed by `pcg_iters` fixed PCG
     iterations or, with `pcg_rtol` set, PCG to that tolerance (at most
     `pcg_maxiter` iterations) against the f64 operator.  `stats` counts
     the inner solves ("solves") and the preconditioner applications of
     the polish ("precond"; "pcg_iters" lists pcg_tol's iteration counts),
-    so K1/K2 launch solves + precond times each.
+    so with Thomas K1/K2 launch solves + precond times each (none with
+    "cr").
+
+    factor_method, factor_compute_dtype, factor_store_dtype: see the
+    module docstring and `_BTPrograms`; template: the `tpl` of an earlier
+    build of the same wing, reused (the build's largest host cost).
 
     accel="aitken": Irons-Tuck dynamic relaxation on the forward passes
     and the adjoint passes, restarted at each gs() call.
@@ -554,9 +626,7 @@ def build_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
     if objective not in ("tip", "compliance"):
         raise ValueError(f"objective must be 'tip' or 'compliance', "
                          f"got {objective!r}")
-    if factor_method not in ("thomas", "cr"):
-        raise ValueError(f"factor_method must be 'thomas' or 'cr', "
-                         f"got {factor_method!r}")
+    _check_factor_options(factor_method, factor_compute_dtype)
     if accel not in ("none", "aitken"):
         raise ValueError(f"accel must be 'none' or 'aitken', got {accel!r}")
     if sweeps not in ("scan", "pallas"):
@@ -572,10 +642,6 @@ def build_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
         raise ValueError(
             "sweeps='pallas' in f64 requires pcg_iters > 0: the f32 "
             "sweep result must be polished against the f64 operator")
-    if factor_compute_dtype not in (None, "mixed", "float32"):
-        raise ValueError(f"factor_compute_dtype must be None, 'mixed' or "
-                         f"'float32', got {factor_compute_dtype!r}")
-    _unported(factor_method, factor_compute_dtype)
     dev = get_device(device)
     mesh, shell, state = _wing_shell_system(n_shell, span, chord, E, nu,
                                             rho_s, dev)
@@ -594,9 +660,9 @@ def build_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
                                          "force": zero_f},
                                      chunk=assembly_chunk)
 
-    tpl = _composite_bt_template(state)
-    # factor_compute_dtype None or "mixed": the same plain f64 inverses
-    bt = _BTPrograms(tpl, jac_blocks, n_dofs, free, bv, factor_store_dtype)
+    tpl = _template(state, template, n_dofs)
+    bt = _BTPrograms(tpl, jac_blocks, n_dofs, free, bv, factor_store_dtype,
+                     factor_method, factor_compute_dtype)
     if pcg_rtol is not None and pcg_rtol < 1e-9:
         # the attainable relative residual is ~eps_f64 * cond, and the
         # composite's cond grows as its cells shrink: the true f64
@@ -1175,24 +1241,19 @@ def build_dynamic_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
 
     Launches per step: W8 forward fsi_iters polished solves; W8 backward
     1 + adj_passes solves and adj_passes Fm^T products (K4T); W9 one
-    solve each way.  A polished solve launches K1 and K2 each 2 +
-    pcg_iters times (one, without the polish); `stats` counts the solves
-    ("solves") and the polish's preconditioner applications ("precond").
+    solve each way.  With Thomas a polished solve launches K1 and K2 each
+    2 + pcg_iters times (one, without the polish; none with "cr");
+    `stats` counts the solves ("solves") and the polish's preconditioner
+    applications ("precond").
 
     template: the BlockTridiagTemplate (`tpl`) of an earlier build of the
     same wing, reused instead of recomputed (it is the build's largest host
-    cost, and depends on the mesh and the clamp alone).  factor_method=
-    "cr" and factor_compute_dtype="float32" are ROADMAP slice D2b and
-    raise; "mixed" computes the plain f64 inverses.  See the module
-    docstring for the departures from the JAX builder.
+    cost, and depends on the mesh and the clamp alone).  For
+    factor_method and factor_compute_dtype ("mixed" computes the plain
+    f64 inverses) and the departures from the JAX builder, see the
+    module docstring.
     """
-    if factor_method not in ("thomas", "cr"):
-        raise ValueError(f"factor_method must be 'thomas' or 'cr', "
-                         f"got {factor_method!r}")
-    if factor_compute_dtype not in (None, "mixed", "float32"):
-        raise ValueError(f"factor_compute_dtype must be None, 'mixed' or "
-                         f"'float32', got {factor_compute_dtype!r}")
-    _unported(factor_method, factor_compute_dtype)
+    _check_factor_options(factor_method, factor_compute_dtype)
     dev = get_device(device)
     mesh, shell, _ = _wing_shell_system(n_shell, span, chord, E, nu, rho_s,
                                         dev)
@@ -1216,14 +1277,9 @@ def build_dynamic_fsi_jit_step(n_shell=(16, 24), n_vlm=(4, 16), span=4.0,
              "force": zeros(shell.Vf)}
         return state.jacobian_blocks(x, p, chunk=assembly_chunk)
 
-    if template is None:
-        tpl = _composite_bt_template(state)
-    elif template.n != n_dofs:
-        raise ValueError(f"template is for {template.n} dofs, this wing has "
-                         f"{n_dofs}")
-    else:
-        tpl = template
-    bt = _BTPrograms(tpl, jac_blocks, n_dofs, free, bv, factor_store_dtype)
+    tpl = _template(state, template, n_dofs)
+    bt = _BTPrograms(tpl, jac_blocks, n_dofs, free, bv, factor_store_dtype,
+                     factor_method, factor_compute_dtype)
     vlm, lat0, vvec, consts, _ = _vlm_and_maps(mesh, shell, n_vlm, span,
                                                chord, rho_air, v_inf)
     st = _DynamicFSIStep(

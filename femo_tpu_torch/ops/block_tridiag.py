@@ -1,5 +1,6 @@
-"""Block-tridiagonal operators and the block-Thomas direct solver (port of
-femo_tpu/ops/block_tridiag.py: the Thomas path and its solver adapter).
+"""Block-tridiagonal operators and their direct solvers (port of
+femo_tpu/ops/block_tridiag.py: block Thomas, block cyclic reduction and
+the solver adapter).
 
 After RCM reordering (femo_tpu_torch.native, the JAX package's C++), a FEM
 matrix has bandwidth b; with block size B >= b (rounded up to a multiple of
@@ -9,18 +10,22 @@ matrix has bandwidth b; with block size B >= b (rounded up to a multiple of
 * factor: block Thomas, S_i = D_i - L_i C_{i-1}, Sinv_i = S_i^{-1},
   C_i = Sinv_i U_i — a Python loop over nb of `torch.linalg.inv_ex` and
   `@` (the JAX package left this recursion to XLA, not to Pallas).  No
-  inter-block pivoting; the block inverses pivot.  Like the JAX recursion
-  it does not check for singular blocks: a failed inverse shows as
-  non-finite values downstream, without a host sync per block.  Its
-  options are those of the JAX signature that a caller passes
-  (`store_dtype`, `spd`; `guard` raises); see `factor` for the
-  departures.
+  inter-block pivoting; the block inverses pivot.  Without `guard` it does
+  not check for singular blocks: a failed inverse shows as non-finite
+  values downstream, without a host sync per block.  `guard=True` is the
+  JAX package's per-block rescue of low-precision recursions; see
+  `factor` for it and for the departures.
+* factor_cr: block cyclic (odd-even) reduction, ceil(log2 nb) levels of
+  batched inverses and products (BlockCyclicFactor); no CUDA kernel of
+  its own: the JAX package's was generated by XLA, and here each level is
+  a few batched torch calls.
 * factor_spd: the Cholesky-storage variant for SPD operators
   (BlockCholeskyFactor), on CPU tensors only: no kernel computes its
   triangular forward sweep, and nothing in either package solves with it
   outside the tests.
 * solve: the two triangular sweeps, ops/bt_sweeps.py (CUDA kernels on the
-  card, plain loops on the CPU).
+  card, plain loops on the CPU), optionally in a lower dtype on an
+  equilibrated factor (`BlockThomasFactor.sweep_dtype`, `scale`).
 * jacobi_scaled / scale_vector: the symmetric equilibration S A S; the
   scaled solve x = S F'^{-1} S b is built by its callers (graph/implicit.py)
   around the factor F' of the scaled matrix.
@@ -31,9 +36,9 @@ matrix has bandwidth b; with block size B >= b (rounded up to a multiple of
   iterations (no host sync) or to a tolerance (one host read of the
   residual norm per iteration).
 
-Not ported: reduced-precision sweeps and cyclic reduction (ROADMAP slice
-D2b); the chunked factor, which exists for the TPU runtime (one factor
-loop serves every size here).
+Not ported: the chunked factors, which exist for the TPU runtime (one
+factor loop serves every size here; `factor_cr_chunked` returns
+`factor_cr`'s result).
 """
 
 from __future__ import annotations
@@ -46,6 +51,11 @@ import torch
 from ..config import get_device
 from .bt_sweeps import bt_sweep_solve, bwd_sweep_plain
 from .scatter import OwnerTable
+
+
+# the JAX package's guard (_inv_block_guarded's shift and cap)
+GUARD_SHIFT = 1e-4
+GUARD_CAP = 1e7
 
 
 def _round_up(x, m):
@@ -70,6 +80,36 @@ def _shift(xb, k):
     """Block rows shifted by k (+1: row i holds row i-1), zero-filled."""
     z = torch.zeros_like(xb[:1])
     return torch.cat([z, xb[:-1]]) if k == 1 else torch.cat([xb[1:], z])
+
+
+def _bmv(A, x):
+    """Batched (k, B, B) @ (k, B) -> (k, B)."""
+    return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
+
+
+def _cr_level(D, L, U):
+    """One cyclic-reduction level on (m, B, B) blocks, m even: eliminate
+    the odd block rows.  Returns ((Dinv_odd, L_even, U_even, L_odd,
+    U_odd), D2, L2, U2), the reduced system of the m / 2 even rows:
+
+        D2_k = D_2k - L_2k Dinv_{2k-1} U_{2k-1} - U_2k Dinv_{2k+1} L_{2k+1}
+        L2_k = -L_2k Dinv_{2k-1} L_{2k-1},  U2_k = -U_2k Dinv_{2k+1} U_{2k+1}
+
+    (the JAX package's `_cr_level`, whose rows k - 1 come from rolled
+    copies of whole arrays; here from slices, the k = 0 terms being zero)."""
+    De, Do = D[0::2], D[1::2]
+    Le, Lo = L[0::2], L[1::2]
+    Ue, Uo = U[0::2], U[1::2]
+    Dinv_o = torch.linalg.inv_ex(Do)[0]
+    alpha = Le[1:] @ Dinv_o[:-1]  # L_2k Dinv_{2k-1}, k >= 1
+    beta = Ue @ Dinv_o  # U_2k Dinv_{2k+1}
+    D2 = De.clone()
+    D2[1:] -= alpha @ Uo[:-1]
+    D2 -= beta @ Lo
+    L2 = torch.zeros_like(D2)
+    L2[1:] = -(alpha @ Lo[:-1])
+    U2 = -(beta @ Uo)
+    return (Dinv_o, Le, Ue, Lo, Uo), D2, L2, U2
 
 
 class BlockTridiagonalMatrix:
@@ -151,23 +191,58 @@ class BlockTridiagonalMatrix:
         (pivoted) inverse `inv_ex`, which is the same S^{-1} a Cholesky
         inverse gives and the one the JAX package computes off the TPU;
         its Cholesky branch exists for the TPU's missing f64 LU.
-        guard: the JAX package's rescue of non-finite or huge inverses in
-        low-precision recursions.  No caller of the port passes it (the
-        recursion runs in f64), so guard=True raises."""
-        if guard:
-            raise NotImplementedError(
-                "factor(guard=True) is not ported: the port's recursion "
-                "runs in the working dtype and no caller needs the rescue")
-        store = _dtype(store_dtype)
-        C_prev = torch.zeros_like(self.D[0])
+        guard: the JAX package's singularity rescue for low-precision
+        recursions (`_inv_block_guarded`): a block whose inverse is not
+        finite or exceeds GUARD_CAP in magnitude is inverted again with
+        the relative diagonal shift GUARD_SHIFT * max(max |diag S|, 1).
+        The JAX package decides per block under `lax.cond`.  Here the
+        recursion first runs unguarded and keeps each block's flag on the
+        device; one host read after the loop finds the first flagged
+        block, and only then does the recursion rerun from that block,
+        with the rescue chosen per block by `torch.where` (both inverses
+        computed).  The same blocks get the same shifted inverses; a
+        healthy chain pays one small reduction a block and one sync.
+        The factor's `rescued` counts the rescued blocks (a tensor; 0
+        without a rescue)."""
         Sinv, C = [], []
-        for i in range(self.nb):
+        flags = self._thomas(0, Sinv, C, flag=guard)
+        rescued = 0
+        if guard:
+            bad = torch.nonzero(torch.stack(flags))  # the one host sync
+            if len(bad):
+                start = int(bad[0, 0])
+                del Sinv[start:], C[start:]
+                rescued = torch.stack(
+                    self._thomas(start, Sinv, C, rescue=True)).sum()
+        store = _dtype(store_dtype)
+        Sinv_t, C_t = torch.stack(Sinv), torch.stack(C)
+        Sinv.clear()
+        C.clear()
+        return BlockThomasFactor(self, _stored(Sinv_t, store),
+                                 _stored(C_t, store), rescued=rescued)
+
+    def _thomas(self, start, Sinv, C, flag=False, rescue=False):
+        """The recursion from block `start` (C_{start-1} is C[-1]),
+        appending each Sinv_i and C_i.  flag / rescue: return each block's
+        guard flag (a device bool) / and replace its flagged inverse by
+        the shifted one (see `factor`)."""
+        C_prev = C[-1] if start else torch.zeros_like(self.D[0])
+        eye = torch.eye(self.B, dtype=self.D.dtype, device=self.D.device)
+        flags = []
+        for i in range(start, self.nb):
             S = self.D[i] - self.L[i] @ C_prev
-            Si, _ = torch.linalg.inv_ex(S)
-            C_prev = Si @ self.U[i]
-            Sinv.append(_stored(Si, store))
-            C.append(_stored(C_prev, store))
-        return BlockThomasFactor(self, torch.stack(Sinv), torch.stack(C))
+            X, info = torch.linalg.inv_ex(S)
+            if flag or rescue:
+                bad = (info != 0) | ~(X.abs().amax() <= GUARD_CAP)
+                if rescue:
+                    s0 = torch.clamp(torch.diagonal(S).abs().amax(), min=1.0)
+                    Xr, _ = torch.linalg.inv_ex(S + (GUARD_SHIFT * s0) * eye)
+                    X = torch.where(bad, Xr, X)
+                flags.append(bad)
+            C_prev = X @ self.U[i]
+            Sinv.append(X)
+            C.append(C_prev)
+        return flags
 
     def factor_t(self, store_dtype=None,
                  spd: bool = False) -> "BlockThomasFactor":
@@ -221,22 +296,100 @@ class BlockTridiagonalMatrix:
         """Apply the block-layout diagonal scale s to a dof vector."""
         return self.from_blocks(self.to_blocks(x) * s)
 
+    # -- block cyclic reduction ----------------------------------------------
+    def _cr_padded(self):
+        """(D, L, U) padded to n2 = the next power of two >= nb blocks with
+        identity D and zero L, U blocks, L[0] and U[-1] zeroed (the
+        reduction's boundary), and n2.  Copies: the matrix stays as it
+        was."""
+        nb, B = self.nb, self.B
+        n2 = 1 << max(nb - 1, 0).bit_length()
+        pad = n2 - nb
+        z = self.D.new_zeros((pad, B, B))
+        eye = torch.eye(B, dtype=self.D.dtype, device=self.D.device)
+        D = torch.cat([self.D, eye.expand(pad, B, B)])
+        L = torch.cat([self.L, z])
+        U = torch.cat([self.U, z])
+        L[0] = 0.0
+        U[-1] = 0.0
+        return D, L, U, n2
+
+    def factor_cr(self, store_dtype=None, spd: bool = False,
+                  mixed_ns: int = 0,
+                  mixed_tol: float = 1e-7) -> "BlockCyclicFactor":
+        """Block cyclic (odd-even) reduction: each level eliminates every
+        odd block row of the reduced system at once, with batched block
+        inverses and products, down to one block after ceil(log2 nb)
+        levels (about three times the Thomas factor's flops, in a
+        dependency chain of log2 nb steps instead of nb).
+
+        Each level stores (Dinv_odd, L_even, U_even, L_odd, U_odd); the
+        L and U halves are views of that level's reduced L and U, so a
+        factor holds about 5 n2 blocks (n2: nb padded to a power of two).
+        store_dtype rounds the stored arrays (kept in the working dtype,
+        as `factor` keeps them) while the reduction runs unrounded.  spd
+        and mixed_ns / mixed_tol are the JAX signature's: the block
+        inverses are the plain `inv_ex` (the JAX package's Cholesky and
+        Newton-Schulz inverses exist for the TPU's emulated f64)."""
+        store = _dtype(store_dtype)
+        D, L, U, n2 = self._cr_padded()
+        levels = []
+        while D.shape[0] > 1:
+            stored, D, L, U = _cr_level(D, L, U)
+            levels.append(tuple(_stored(a, store) for a in stored))
+        Dinv_root = _stored(torch.linalg.inv_ex(D[0])[0], store)
+        return BlockCyclicFactor(self, levels, Dinv_root, n2)
+
+    def factor_cr_chunked(self, store_dtype=None, spd: bool = False,
+                          mixed_ns: int = 0, mixed_tol: float = 1e-7,
+                          tail: int = 256) -> "BlockCyclicFactor":
+        """`factor_cr`'s result.  The JAX package splits the reduction into
+        one program per level to fit the TPU's 16 GB of HBM; the card
+        holds the whole reduction at the FSI anchor, so this is a
+        deliberate departure kept for the signature (`tail` unused)."""
+        return self.factor_cr(store_dtype, spd, mixed_ns, mixed_tol)
+
+    def factor_t_cr(self) -> "BlockCyclicFactor":
+        """Cyclic-reduction factorization of A^T (for adjoint solves)."""
+        return self._transposed().factor_cr()
+
 
 @dataclass
 class BlockThomasFactor:
     """Solve phase of block Thomas.  The forward sweep reads `mat.L` beside
     `Sinv`: the factor's own lower blocks, which a caller reusing a stale
-    factor must keep (graph/implicit.py)."""
+    factor must keep (graph/implicit.py).
+
+    sweep_dtype, scale, Lfac: a factor of the equilibrated operator
+    S A S (S = diag(scale), (nb, B) in block layout) computed in a lower
+    dtype (the FSI builders' factor_compute_dtype="float32"): Sinv, C and
+    the scaled lower blocks Lfac = S_i L_i S_{i-1} in `sweep_dtype`, and
+    the solve is x = S F^{-1} (S b), the sweeps run in sweep_dtype."""
 
     mat: BlockTridiagonalMatrix
     Sinv: torch.Tensor  # (nb, B, B)
     C: torch.Tensor  # (nb, B, B)
+    sweep_dtype: object = None
+    scale: torch.Tensor | None = None
+    Lfac: torch.Tensor | None = None
+    rescued: object = 0  # blocks factor(guard=True) rescued
 
     def solve(self, b):
-        """x = A^{-1} b through the two triangular sweeps."""
+        """x = A^{-1} b through the two triangular sweeps (K1 then K2 on
+        CUDA tensors): b to blocks, times `scale`, cast to `sweep_dtype`,
+        the sweeps on (Sinv, Lfac or mat.L, C), cast back, times
+        `scale`."""
         m = self.mat
-        return m.from_blocks(
-            bt_sweep_solve(self.Sinv, m.L, self.C, m.to_blocks(b)))
+        bb = m.to_blocks(b)
+        L = m.L
+        if self.scale is not None:
+            bb, L = bb * self.scale, self.Lfac
+        if self.sweep_dtype is not None:
+            bb = bb.to(_dtype(self.sweep_dtype))
+        x = bt_sweep_solve(self.Sinv, L, self.C, bb).to(b.dtype)
+        if self.scale is not None:
+            x = x * self.scale
+        return m.from_blocks(x)
 
     def solve_refined(self, b, refine: int = 0):
         """Solve with `refine` steps of iterative refinement against the
@@ -245,6 +398,42 @@ class BlockThomasFactor:
         for _ in range(refine):
             x = x + self.solve(b - self.mat.matvec(x))
         return x
+
+
+@dataclass
+class BlockCyclicFactor:
+    """Solve phase of block cyclic reduction (`factor_cr`): a downward
+    sweep reduces b level by level with t = Dinv_odd b_odd (so no
+    multiplier matrices are stored), keeping each level's b_odd; the root
+    solve; then an upward sweep recovers the odd unknowns of each level
+    and interleaves them with the even ones.  Each level is a few batched
+    matvecs (torch calls), on any device."""
+
+    mat: BlockTridiagonalMatrix
+    levels: list  # per level (Dinv_odd, L_even, U_even, L_odd, U_odd)
+    Dinv_root: torch.Tensor  # (B, B)
+    n2: int
+
+    def solve(self, b):
+        m = self.mat
+        bb = m.to_blocks(b)
+        if self.n2 > m.nb:
+            bb = torch.cat([bb, bb.new_zeros((self.n2 - m.nb, m.B))])
+        odd = []
+        for Dinv_o, Le, Ue, Lo, Uo in self.levels:
+            be, bo = bb[0::2], bb[1::2]
+            t = _bmv(Dinv_o, bo)
+            odd.append(bo)
+            bb = be.clone()
+            bb[1:] -= _bmv(Le[1:], t[:-1])
+            bb -= _bmv(Ue, t)
+        x = (self.Dinv_root @ bb[0])[None]
+        for (Dinv_o, Le, Ue, Lo, Uo), bo in zip(reversed(self.levels),
+                                                reversed(odd)):
+            r = bo - _bmv(Lo, x)
+            r[:-1] -= _bmv(Uo[:-1], x[1:])
+            x = torch.stack([x, _bmv(Dinv_o, r)], dim=1).reshape(-1, m.B)
+        return m.from_blocks(x[: m.nb])
 
 
 @dataclass

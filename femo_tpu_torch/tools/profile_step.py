@@ -3,8 +3,8 @@ shell compliance step, W7 FSI optimization iteration and W8 trajectory
 gradient goes, on one CUDA card.
 
     python -m femo_tpu_torch.tools.profile_step [--refine 1 4] [--w1 260]
-        [--shell a b] [--fsi] [--fsi-dynamic] [--refactor-every N]
-        [--freeze-operator] [--steps 5] [--out FILE]
+        [--shell a b] [--fsi] [--fsi-dynamic] [--factor-method cr]
+        [--refactor-every N] [--freeze-operator] [--steps 5] [--out FILE]
 
 For each refine level the motor step is built in f64 in the
 configuration of the f64 oracle (experiments/motor_latency_oracle.json),
@@ -23,7 +23,10 @@ cells, 927,402 dofs, the JAX package's anchor solver) is built in f64
 and its step is one `solve_with_grad`; with `--fsi-dynamic` the W8
 rung (DYN_RUNG: 76,800 cells, 662,442 dofs, f32 factor storage) is
 built in f64 and its step is one `run_with_grad` over DYN_STEPS time
-steps (the factor, the forward march, the checkpointed adjoint).  Each step is
+steps (the factor, the forward march, the checkpointed adjoint); with
+`--factor-method cr` both FSI runs use block cyclic reduction with f64
+factor storage (the factor and its solves in their own ranges,
+`fsi.factor_cr` / `fsi.cr_solve` and `dyn.*`).  Each step is
 run once to warm, timed over `--steps` untraced warm steps (host clock,
 ending in a device sync), then traced for one warm step with
 torch.profiler (CPU + CUDA).  During the traced step the port's layers
@@ -72,7 +75,8 @@ from ..models.vlm import VLM
 from ..models.poisson import build_fea
 from ..ops import bt_sweeps, spmv
 from ..ops.block_tridiag import (
-    BlockThomasFactor, BlockTridiagonalMatrix, BlockTridiagTemplate)
+    BlockCyclicFactor, BlockThomasFactor, BlockTridiagonalMatrix,
+    BlockTridiagTemplate)
 from ..solvers.linear import KrylovFactorization, LinearSolver
 
 ORACLE_CFG = dict(em_load_steps=3, mm_newton_iters=3, em_newton_iters=3,
@@ -86,10 +90,12 @@ LAYERS = {
     "assemble.scalar": (CompiledForm, "scalar"),
     "bt.fill": (BlockTridiagTemplate, "fill"),
     "bt.factor": (BlockTridiagonalMatrix, "factor"),
+    "bt.factor_cr": (BlockTridiagonalMatrix, "factor_cr"),
     "bt.transpose": (BlockTridiagonalMatrix, "_transposed"),
     "bt.matvec": (BlockTridiagonalMatrix, "matvec"),
     "bt.matvec_t": (BlockTridiagonalMatrix, "matvec_t"),
     "bt.solve": (BlockThomasFactor, "solve"),
+    "bt.cr_solve": (BlockCyclicFactor, "solve"),
     "sweeps.K1": (bt_sweeps, "fwd_sweep_cuda"),
     "sweeps.K2": (bt_sweeps, "bwd_sweep_cuda"),
 }
@@ -128,6 +134,8 @@ FSI_LAYERS = {
     "fsi.vlm": (VLM, "solve"),
     "fsi.rhs": (fsi._FSIStep, "_rhs"),
     "fsi.sweeps": (BlockThomasFactor, "solve"),
+    "fsi.factor_cr": (BlockTridiagonalMatrix, "factor_cr"),
+    "fsi.cr_solve": (BlockCyclicFactor, "solve"),
     "fsi.pcg": (fsi._FSIStep, "_polish"),
     "fsi.adjoint": (fsi._FSIStep, "adjoint"),
     "bt.matvec": (BlockTridiagonalMatrix, "matvec"),
@@ -148,6 +156,8 @@ DYN_LAYERS = {
     "dyn.vlm": (VLM, "solve"),
     "dyn.rhs": (fsi._DynamicFSIStep, "rhs"),
     "dyn.sweeps": (BlockThomasFactor, "solve"),
+    "dyn.factor_cr": (BlockTridiagonalMatrix, "factor_cr"),
+    "dyn.cr_solve": (BlockCyclicFactor, "solve"),
     "dyn.pcg": (fsi._FSIStep, "_polish"),
     "dyn.adjoint": (fsi._DynamicFSIStep, "adjoint_step"),
     "dyn.adjoint_ext": (fsi._DynamicFSIStep, "adjoint_step_ext"),
@@ -400,10 +410,17 @@ def profile_shell(name, steps):
     return r
 
 
-def profile_fsi(steps):
+def _factor_kw(factor_method):
+    """Block cyclic reduction with f64 factor storage, or {} (Thomas)."""
+    if factor_method == "cr":
+        return dict(factor_method="cr", factor_store_dtype=None)
+    return {}
+
+
+def profile_fsi(steps, factor_method="thomas"):
     """The FSI anchor's optimization iteration, `solve_with_grad` (5 rounds
     of 4 Gauss-Seidel passes, the 24-pass coupled adjoint)."""
-    cfg = FSI_ANCHOR
+    cfg = dict(FSI_ANCHOR, **_factor_kw(factor_method))
     t_build, f = _sync_time(lambda: fsi.build_fsi_jit_step(device="cuda",
                                                            **cfg))
     stats = f["stats"]
@@ -425,13 +442,14 @@ def profile_fsi(steps):
     return r
 
 
-def profile_fsi_dynamic(steps):
+def profile_fsi_dynamic(steps, factor_method="thomas"):
     """The W8 rung's trajectory gradient, `run_with_grad` over DYN_STEPS
     time steps (factor, forward march, checkpointed adjoint), f32 factor
-    storage (bench_scale.py's configuration)."""
-    cfg = DYN_RUNG
+    storage (bench_scale.py's configuration) with Thomas."""
+    cfg = dict(DYN_RUNG, factor_store_dtype="float32",
+               **_factor_kw(factor_method))
     t_build, f = _sync_time(lambda: fsi.build_dynamic_fsi_jit_step(
-        device="cuda", factor_store_dtype="float32", **cfg))
+        device="cuda", **cfg))
     stats = f["stats"]
     r, out = trace_step(lambda: f["run_with_grad"](f["t0"], DYN_STEPS),
                         steps, DYN_LAYERS)
@@ -483,6 +501,9 @@ def main(argv=None):
                     help="the FSI anchor's optimization iteration")
     ap.add_argument("--fsi-dynamic", action="store_true",
                     help="the W8 rung's trajectory gradient")
+    ap.add_argument("--factor-method", choices=("thomas", "cr"),
+                    default="thomas",
+                    help="the FSI runs' factor (cr: f64 storage)")
     ap.add_argument("--refactor-every", type=int, default=1,
                     help="motor step: factor every N Newton iterations")
     ap.add_argument("--freeze-operator", action="store_true",
@@ -511,8 +532,9 @@ def main(argv=None):
             + [lambda v=v: profile_w1(v, args.steps) for v in args.w1]
             + [lambda v=v: profile_shell(v, args.steps)
                for v in args.shell]
-            + ([lambda: profile_fsi(args.steps)] if args.fsi else [])
-            + ([lambda: profile_fsi_dynamic(args.steps)]
+            + ([lambda: profile_fsi(args.steps, args.factor_method)]
+               if args.fsi else [])
+            + ([lambda: profile_fsi_dynamic(args.steps, args.factor_method)]
                if args.fsi_dynamic else []))
     for run in runs:
         r = run()

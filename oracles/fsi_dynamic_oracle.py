@@ -22,7 +22,10 @@ entry alone to read its own).
   (f64 factor storage, no PCG polish, fsi_iters 8, adj_passes 10), three
   steps of `run_with_grad`: the tips, J, the thickness gradient and the
   adjoint's per-step increments; jit_mixed is jit with the JAX package's
-  mixed-precision block inverses, its own spread.
+  mixed-precision block inverses, its own spread; jit_cr is jit with
+  block cyclic reduction (`factor_method="cr"`), and jit_f32c the
+  equilibrated f32 factor (`factor_compute_dtype="float32"`) with 4 PCG
+  iterations (an f32 factor needs the f64 polish).
 * w9: the external-load build at (6, 10) / (2, 4), pcg_iters 8, f64
   factor storage, under a seeded load series (seed 3, lift 40), four
   steps of `run_with_grad`: also the load gradient; w9_mixed the same
@@ -32,6 +35,10 @@ entry alone to read its own).
   fsi_iters 2, pcg_iters 4, twelve steps of `run_with_grad` (the gust
   starts at t = 0.1 and acts in steps 11 and 12), with f64 and f32 factor
   storage.
+* span600_f64: rung_f64's wing and solver at 600 spanwise cells (4,800
+  cells), where the equilibrated f32 factor is still an admissible
+  preconditioner (at 4,800 spanwise cells the JAX package's own f32
+  factor leaves ||A M b - b|| / ||b|| = 78 and its tips O(1) off).
 * w9_rung_f64: W9 on that wing with f64 storage, twelve steps, under the
   synthetic restart series (`synthetic_restart`: 24 samples over
   n_steps * dt, seed 0) read back through `aero_forces_from_file` at the
@@ -85,6 +92,9 @@ CONFIGS = {
                         series=dict(kind="restart", seed=0, n_samples=24)),
 }
 CONFIGS["w9_mixed"] = dict(CONFIGS["w9"], factor_compute_dtype="mixed")
+CONFIGS["jit_cr"] = dict(JIT, factor_method="cr")
+CONFIGS["span600_f64"] = dict(RUNG, n_shell=[4, 600], factor_store_dtype=None)
+CONFIGS["jit_f32c"] = dict(JIT, factor_compute_dtype="float32", pcg_iters=4)
 
 
 def synthetic_restart(*args):

@@ -26,7 +26,13 @@ entry alone to read its own).
   relaxation and PCG to a tolerance; each `jit_X` has a `jit_X_mixed`
   beside it (the same path with the JAX package's mixed-precision
   Newton-Schulz block inverses): two correct solves of one iteration,
-  whose distance is the JAX package's own spread.
+  whose distance is the JAX package's own spread.  jit_cr_f64 and
+  jit_cr_f32 are jit_f64 and jit_f32 with block cyclic reduction
+  (`factor_method="cr"`); jit_f32c is the equilibrated f32 factor
+  (`factor_compute_dtype="float32"`) at thickness 0.05 with 8 PCG
+  iterations, the regime the JAX package validates it in (at thickness
+  0.01 its f32 factor plateaus), and jit_f32c_f64 the same with the f64
+  factor, the JAX package's own spread beside it.
 * small, small_f64, small_mixed: bench_scale.py's small rung, (16, 24) /
   (4, 8), span 4, thickness 0.01, in the anchor's solver configuration
   (gs_inner 4, f32 factor storage, PCG to 1e-7 with at most 10
@@ -41,6 +47,8 @@ entry alone to read its own).
   factor storage (~8 GiB and several minutes on the CPU host).
 * rung, rung_f64, rung_mixed: the same wing at (4, 1680) (13,440 cells),
   chunked as the anchor is (assembly_chunk 4096), three ways;
+  rung_cr_f64: rung_f64 with block cyclic reduction
+  (`factor_method="cr"`);
   rung_residual: its composite residual at a seeded random state and
   force (seed 3, scale 1e-3), the operator without a solve.
 
@@ -114,6 +122,13 @@ CONFIGS["rung"] = dict(RUNG, **ANCHOR_SOLVER)
 CONFIGS["rung_f64"] = dict(CONFIGS["rung"], factor_store_dtype=None)
 CONFIGS["rung_mixed"] = dict(CONFIGS["rung"], factor_compute_dtype="mixed")
 CONFIGS["rung_residual"] = dict(RUNG, seed=3, scale=1e-3)
+CONFIGS["rung_cr_f64"] = dict(CONFIGS["rung_f64"], factor_method="cr")
+CONFIGS["jit_cr_f64"] = dict(CONFIGS["jit_f64"], factor_method="cr")
+CONFIGS["jit_cr_f32"] = dict(CONFIGS["jit_f32"], factor_method="cr")
+CONFIGS["jit_f32c"] = dict(JIT, thickness=0.05, factor_store_dtype=None,
+                           factor_compute_dtype="float32", pcg_iters=8)
+CONFIGS["jit_f32c_f64"] = dict(JIT, thickness=0.05, factor_store_dtype=None,
+                               pcg_iters=8)
 
 
 def _np(a):

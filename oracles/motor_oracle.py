@@ -2,7 +2,7 @@
 that chip_smoke.py drives in the PyTorch/CUDA port beyond the oracle
 configuration of experiments/motor_latency_oracle.json.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python oracles/motor_oracle.py
+    JAX_PLATFORMS=cpu PYTHONPATH=. python oracles/motor_oracle.py [name ...]
 
 Runs femo_tpu (CPU, f64) and writes oracles/motor_oracle.npz: for each
 configuration below the loss, g_dv and g_iq of one motor step at its dv0
@@ -14,6 +14,9 @@ keyword arguments of each as JSON.
   deltas, 3 EM load steps, 3+3 Newton iterations, 8 PCG iterations.
 * r1_re3_freeze: bench.py's refine-1 rung, the same with
   `freeze_operator=True` (refine 1 only, as bench.py gates it).
+* r4_cr: the configuration of experiments/motor_latency_oracle.json at
+  refine 4 with block cyclic reduction (`factor_method="cr"`) in place of
+  the block-Thomas factor.
 * r1_lu: the dense-LU branch (`factorization="lu"`) at refine 1, the same
   counts.
 * r1_basis: the 2-dof design space at refine 1, block Thomas,
@@ -32,11 +35,13 @@ keyword arguments of each as JSON.
   tests/test_torch_motor_model.py): compiling these JAX configurations
   takes longer than the tests' time allows.
 
-Each configuration is saved as soon as it is done, refine 4 last.
+Each configuration is saved as soon as it is done, refine 4 last.  Named
+configurations are recomputed and the others of the file kept.
 """
 
 import json
 import os
+import sys
 import tempfile
 import time
 
@@ -70,6 +75,7 @@ STEPS = {
     "unstructured_r1": dict(ORACLE_CFG, mesh="write_motor_msh(refine=1, "
                             "seed=0)"),
     "r4_re3": dict(BENCH, refine=4),
+    "r4_cr": dict(ORACLE_CFG, refine=4, factor_method="cr"),
 }
 EAGER = {
     "eager_r05": dict(refine=0.5, em_load_steps=2, linear_solver="scipy",
@@ -116,15 +122,27 @@ def eager_values(name, kw):
     return vals
 
 
-def main():
+def main(names):
     configs = dict(STEPS, **EAGER)
+    unknown = set(names) - set(configs)
+    if unknown:
+        raise SystemExit(f"unknown configurations {sorted(unknown)}; known: "
+                         f"{list(configs)}")
     values = {"configs": json.dumps(configs)}
     seconds = {}
+    if names and os.path.exists(OUT):
+        with np.load(OUT) as old:
+            values.update({k: old[k] for k in old.files
+                           if k not in ("configs", "seconds")})
+            seconds = json.loads(str(old["seconds"]))
+    refine4 = [n for n in STEPS if n.startswith("r4_")]
     jobs = [(n, lambda n=n: step_values(n, STEPS[n])) for n in STEPS
-            if n != "r4_re3"]
+            if n not in refine4]
     jobs += [(n, lambda n=n: eager_values(n, EAGER[n])) for n in EAGER]
-    jobs += [("r4_re3", lambda: step_values("r4_re3", STEPS["r4_re3"]))]
+    jobs += [(n, lambda n=n: step_values(n, STEPS[n])) for n in refine4]
     for name, fn in jobs:
+        if names and name not in names:
+            continue
         t0 = time.time()
         values.update(fn())
         seconds[name] = time.time() - t0
@@ -134,4 +152,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

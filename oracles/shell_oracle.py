@@ -34,7 +34,8 @@ before they compare:
   (`module_dense_*`) with jit_dense, whose spread bounds the comparison;
   module_small: the same at (4, 6) for the CPU tests;
 * step_*: every `tests/test_shell_step_paths.py` configuration at (6, 8):
-  compliance and gradient;
+  compliance and gradient; step_cr the fused step with block cyclic
+  reduction;
 * assembly: the shell residuals and the four Jacobian blocks (u-u, u-theta,
   theta-u, theta-theta) at random states on the (6, 8) plate and on 4 x 4
   Scordelis-Lo roofs of triangles and quads, inputs included;
@@ -106,6 +107,9 @@ CONFIGS = {
     "module": MODULE,
     "module_small": dict(MODULE, n_shell=[4, 6], n_aero=[3, 4]),
     **{f"step_{k}": dict(kw, n_shell=[6, 8]) for k, kw in STEP_PATHS.items()},
+    # block cyclic reduction through the fused step (not a STEP_PATHS
+    # entry: the spreads between those paths set the tests' bars)
+    "step_cr": dict(n_shell=[6, 8], factor_method="cr"),
     "assembly": dict(plate=[6, 8], roof=4, seed=0),
     "edge": dict(n=[16, 2], L=10.0, b=1.0, t=0.1, E=1e6, seed=1),
     "cantilever": dict(n=[12, 2], L=10.0, b=1.0, t=0.1, E=1e6, q=1e-3,

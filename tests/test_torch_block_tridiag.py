@@ -28,8 +28,8 @@ from femo_tpu.models.motor import pde as jpde
 from femo_tpu.models.motor.mesh import RADII, create_motor_mesh
 from femo_tpu.models.motor.permeability import PiecewiseBHCurve as JBH
 from femo_tpu.ops.block_tridiag import (
-    BlockTridiagonalMatrix as JMatrix, BlockTridiagTemplate as JTemplate,
-    pcg_fixed as jpcg_fixed)
+    BlockThomasFactor as JFactor, BlockTridiagonalMatrix as JMatrix,
+    BlockTridiagTemplate as JTemplate, pcg_fixed as jpcg_fixed)
 from femo_tpu.solvers.linear import LinearSolver as JLinearSolver
 
 from femo_tpu_torch.convert import mesh_from_jax
@@ -175,13 +175,26 @@ def test_pcg_fixed_matches(case, transpose):
 
 
 def test_factor_refuses_unported_modes(case):
-    """The factor holds (mat, Sinv, C) only: the JAX factor's
-    reduced-precision sweeps are not ported, and its scaled solve is the
-    wrapper around the factor of jacobi_scaled() that callers build."""
-    fac = case["tmat"].factor()
-    for kw in ({"scale": torch.ones(1)}, {"sweep_dtype": torch.float32}):
-        with pytest.raises(TypeError):
-            BlockThomasFactor(fac.mat, fac.Sinv, fac.C, **kw)
+    """The JAX factor's reduced-precision sweeps and scaled solve, once
+    refused here, are ported (`sweep_dtype`, `scale`, `Lfac`): the f32
+    factor of the equilibrated operator solved as x = S F^{-1} (S b) with
+    the sweeps in f32, against the JAX package's solve of the same
+    (1e-5, f32 factors from different LAPACK paths)."""
+    f32 = np.float32
+    jsm, js = case["jmat"].jacobi_scaled()
+    jf = JMatrix(jsm.D.astype(f32), jsm.L.astype(f32), jsm.U.astype(f32),
+                 jsm.perm, jsm.n).factor()
+    jfac = JFactor(case["jmat"], jf.Sinv, jf.C, sweep_dtype="float32",
+                   scale=js, Lfac=jsm.L.astype(f32))
+    tm = case["tmat"]
+    sm, s = tm.jacobi_scaled()
+    tf = sm._like(sm.D.float(), sm.L.float(), sm.U.float()).factor()
+    fac = BlockThomasFactor(tm, tf.Sinv, tf.C, sweep_dtype=torch.float32,
+                            scale=s, Lfac=sm.L.float())
+    b = case["rng"].standard_normal(tm.n)
+    x = fac.solve(torch.as_tensor(b))
+    assert x.dtype == torch.float64
+    assert _rel(x.numpy(), jfac.solve(jnp.asarray(b))) <= 1e-5
 
 
 def test_jacobi_scaled_matches(case):

@@ -248,12 +248,13 @@ def test_guards():
                        (dict(factor_compute_dtype="bf16"),
                         "factor_compute_dtype"),
                        (dict(sweeps="pallas", pcg_iters=0),
-                        "requires pcg_iters > 0")):
+                        "requires pcg_iters > 0"),
+                       (dict(factor_method="cr",
+                             factor_compute_dtype="float32"),
+                        "requires factor_method='thomas'"),
+                       (dict(factor_method="cr", sweeps="pallas"),
+                        "requires factor_method='thomas'")):
         with pytest.raises(ValueError, match=match):
-            build_fsi_jit_step(**kw, **bad)
-    for bad in (dict(factor_method="cr"),
-                dict(factor_compute_dtype="float32")):
-        with pytest.raises(NotImplementedError, match="slice D2b"):
             build_fsi_jit_step(**kw, **bad)
     if not torch.cuda.is_available():
         for build in (build_fsi_jit_step, build_wing_fsi):

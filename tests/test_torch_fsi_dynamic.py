@@ -381,13 +381,12 @@ def test_synthetic_restart_matches_example(tmp_path):
 
 def test_guards():
     kw = dict(n_shell=(4, 6), n_vlm=(2, 4), device="cpu")
-    for bad in (dict(factor_method="cr"),
-                dict(factor_compute_dtype="float32")):
-        with pytest.raises(NotImplementedError, match="slice D2b"):
-            build_dynamic_fsi_jit_step(**kw, **bad)
     for bad, match in ((dict(factor_method="lu"), "factor_method"),
                        (dict(factor_compute_dtype="bf16"),
-                        "factor_compute_dtype")):
+                        "factor_compute_dtype"),
+                       (dict(factor_method="cr",
+                             factor_compute_dtype="float32"),
+                        "requires factor_method='thomas'")):
         with pytest.raises(ValueError, match=match):
             build_dynamic_fsi_jit_step(**kw, **bad)
     f = build_dynamic_fsi_jit_step(**kw, external_loads=True)

@@ -23,7 +23,9 @@ from femo_tpu.fea import (
     FunctionSpace as JSpace, bc_arrays as jbc_arrays,
     create_unit_square_mesh as jsquare, dot as jdot, dx as jdx,
     grad as jgrad)
-from femo_tpu.fea.assemble import compile_form as jcompile
+from femo_tpu.fea.assemble import (
+    ElementMatrix as JElementMatrix, MatBlock as JMatBlock,
+    compile_form as jcompile)
 from femo_tpu.graph.implicit import (
     implicit_solve_bt_jit, implicit_solve_dense_jit)
 from femo_tpu.ops.block_tridiag import BlockTridiagTemplate as JTemplate
@@ -65,8 +67,13 @@ def system(n):
     jcf = jcompile(JFormDef([jdx(_residual(jdot, jgrad))], coeffs=[ju, jf],
                             test=jV))
     jfree, jbv = jbc_arrays([JDirichletBC(jV, 0.0, where=_x0)], jV.n_dofs)
-    jtpl = JTemplate(jcf.matrix({"u": ju.array, "f": jf.array}, "u"),
-                     free=np.asarray(jfree))
+    # the template reads only the pattern: broadcast ones, no assembly
+    # (an eager JAX Jacobian costs seconds of compiles)
+    jtpl = JTemplate(JElementMatrix([JMatBlock(
+        np.broadcast_to(1.0, t.gdofs0["__test__"].shape
+                        + t.gdofs0["u"].shape[1:]),
+        np.asarray(t.gdofs0["__test__"]), np.asarray(t.gdofs0["u"]))
+        for t in jcf.terms], jV.n_dofs, jV.n_dofs), free=np.asarray(jfree))
 
     mesh = mesh_from_jax(jmesh)
     V = FunctionSpace(mesh, ("CG", 1), device="cpu")

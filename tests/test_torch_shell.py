@@ -345,16 +345,18 @@ def test_block_factors_match_jax(kind):
 
 
 def test_unported_factor_paths_raise():
-    """factor(guard=True) raises (no caller of the port needs the JAX
-    package's low-precision rescue), and the Cholesky-storage solve
-    refuses a tensor off the CPU: no kernel computes its triangular
-    sweep, and a solve on the card runs K1/K2 or raises."""
+    """factor(guard=True), the JAX package's low-precision rescue, leaves a
+    healthy SPD chain's factor as it is (tests/test_torch_cr.py holds a
+    rescue to the JAX package's), and the Cholesky-storage solve refuses
+    a tensor off the CPU: no kernel computes its triangular sweep, and a
+    solve on the card runs K1/K2 or raises."""
     nb, B = 2, 32
     D, L, U, b = spd_blocks(nb, B, seed=4)
     tm = BlockTridiagonalMatrix(*(torch.as_tensor(a) for a in (D, L, U)),
                                 np.arange(nb * B), nb * B)
-    with pytest.raises(NotImplementedError, match="guard"):
-        tm.factor(guard=True)
+    g, p = tm.factor(guard=True), tm.factor()
+    assert int(g.rescued) == 0
+    assert torch.equal(g.Sinv, p.Sinv) and torch.equal(g.C, p.C)
     with pytest.raises(RuntimeError, match="CPU tensors only"):
         tm.factor_spd().solve(torch.empty(nb * B, dtype=torch.float64,
                                           device="meta"))
