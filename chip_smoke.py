@@ -202,8 +202,8 @@ non-zero without the final line:
    seconds, J, |grad|, adj_deltas; each against the JAX package's entry
    of its storage at the fixed bars of DYN_GATES
    (oracles/fsi_dynamic_oracle.npz), and the port's f32-vs-f64 distance
-   within 10x the JAX package's own; a second f64 run_with_grad with
-   equal bits; peak device memory; K1/K2 against plain
+   within 10x the JAX package's own; two f64 run_with_grad of 2 steps
+   with equal bits; peak device memory; K1/K2 against plain
    on the rung's f64-stored factor (10x the plain solve's reordered-sum
    spread, step residuals 1e-12) and timed at (5176, 128); K4/K4T against
    plain on its Fm (76,800 18 x 9 blocks, both designs) and timed; W9
@@ -213,10 +213,11 @@ non-zero without the final line:
    package's entry (tips, J, the thickness and load gradients,
    DYN_GATES); W8 on that template with block cyclic reduction and with
    the equilibrated f32 factor (f64 storage, DYN_FACTORS), one counted
-   run_with_grad each (cr: no K1/K2), CR against the JAX package's
-   rung_f64 entry at DYN_GATES, the f32 factor's distance printed and not
-   gated (no preconditioner at this chain length, in either package;
-   DYN_FACTORS says why), its rescued blocks, and K1/K2 in f32 against
+   run_with_grad each (cr: no K1/K2; the f32 factor over one step), CR
+   against the JAX package's rung_f64 entry at DYN_GATES, the f32
+   factor's run printed and not gated (no preconditioner at this chain
+   length, in either package; DYN_FACTORS says why), its rescued blocks,
+   and K1/K2 in f32 against
    plain on its factor, timed at (5176, 128); the f32 factor on the same
    wing at 600 spanwise cells against the JAX package's span600_f64 entry
    at DYN_GATES; the eager
@@ -225,12 +226,30 @@ non-zero without the final line:
 26. facets_3d: an interior-facet residual and its Jacobian on
    create_unit_cube_mesh(8), tets and hexes, on the card against CPU
    tensors (1e-12), twice with equal bits.
+27. run_scripts (run right after phase 2, the build): the
+   port's run scripts (femo_tpu_torch/examples/) and the L-BFGS-B
+   driver, against the JAX package's runs of its own scripts
+   (oracles/examples_oracle.npz, femo_tpu_torch/tools/example_parity.py):
+   run_motor_opt --jit --refine 4 --maxiter 3 (f64, block Thomas; K1/K2
+   launches = 170 x evaluations; the evaluation count, first loss 1e-8
+   and gradient 1e-6, later losses 1e-7, final x 1e-6; per-evaluation
+   wall times), W1 at nel=260 through LBFGSB(maxiter=5) (K4/K4T launches
+   = BiCGStab's matvecs; every objective 1e-8, final controls 1e-6),
+   run_motor_opt --refine 1 --driver snopt --maxiter 2 (SNOPT's warning;
+   the first two evaluations 1e-7, the first gradient 1e-6, loss_sum at
+   the JAX run's final design 1e-7: the paths part at SLSQP's second
+   step), then every other script once at small arguments (objectives
+   1e-8, designs 1e-6; topo at its first evaluation and the JAX run's
+   final design, the roof at 10x the JAX package's spread between its
+   two solves; not the shell thickness script, SCRIPT_KEYS says why);
+   all kernel counts set to 0 around each run.
 
 Each phase prints its wall seconds.  It prints a JSON line describing
 the kernels (K1/K2 with their launches on every motor path, the
 shell's and FSI's, W8's and W9's (0 on the cyclic-reduction paths), with
 their f32 times on the f32 factors, K4/K4T on W1, W1 with weak BCs, W2
-and W4 and K4T on FSI's and W8's Fm, with K4/K4T's times at W1's, W4's
+and W4, K4T on FSI's and W8's Fm, and the run scripts' paths
+(`launches_by_path`), with K4/K4T's times at W1's, W4's
 and both Fm shapes),
 and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -248,6 +267,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -271,7 +291,8 @@ from femo_tpu_torch.fea.shape import shape_gradient
 from femo_tpu_torch.fea.space import Function, FunctionSpace
 from femo_tpu_torch.fea.utils import errorNorm
 from femo_tpu_torch.graph.model import FEAModel
-from femo_tpu_torch.graph.optimizer import OptimizationProblem, SLSQP
+from femo_tpu_torch.graph.optimizer import (
+    LBFGSB, OptimizationProblem, SLSQP)
 from femo_tpu_torch.graph.simulator import Simulator
 from femo_tpu_torch.mesh.generators import (
     create_unit_cube_mesh, create_unit_square_mesh)
@@ -291,7 +312,10 @@ from femo_tpu_torch.ops.block_tridiag import (
 from femo_tpu_torch.solvers.krylov import cg
 from femo_tpu_torch.solvers.linear import (
     BlockThomasKrylovFactorization, KrylovFactorization, LinearSolver)
+from femo_tpu_torch.tools.example_parity import (
+    check_example, check_optimizer, config, load_oracle, run_example)
 from femo_tpu_torch.tools.fsi_conditioning import direct_witness
+from femo_tpu_torch.tools.minimize_log import minimize_log
 from femo_tpu_torch.tools.profile_step import (
     DYN_LAYERS, FSI_LAYERS, SHELL_LAYERS, layer_ranges)
 from femo_tpu_torch.tools.shell_parity import (
@@ -724,9 +748,8 @@ def phase_refine1(step, dv0, iq0, info):
     expect("K1/K2 launches", launches,
            {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
     check_step(1, loss, g_dv, g_iq, 576, 1e-8)
-    warm = warm_seconds(step, dv0, iq0, 3)
-    print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s "
-          "(least of 3)")
+    warm = warm_seconds(step, dv0, iq0, 1)
+    print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s")
 
     step_c, (dv_c, iq_c), _ = build_motor_jit_step(refine=1, device="cpu",
                                                    **ORACLE_CFG)
@@ -759,9 +782,8 @@ def phase_refine4(err):
     expect("K1/K2 launches", launches,
            {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
     check_step(4, loss, g_dv, g_iq, dv0.numel(), 1e-7)
-    warm = warm_seconds(step, dv0, iq0, 2)
-    print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s "
-          "(least of 2)")
+    warm = warm_seconds(step, dv0, iq0, 1)
+    print(f"  step wall time: first call {cold:.3f} s, warm {warm:.3f} s")
     return [time_sweeps(fac, bb, f"refine-4 {which}")
             for which, (fac, bb) in check_real_factors(info, dv0, iq0, 4,
                                                        err).items()], \
@@ -924,8 +946,8 @@ def phase_refine4_bench(warm_re1):
     expect("factors per step", calls["bt.factor"], REUSE_FACTORS)
     expect("K1/K2 launches", launches,
            {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
-    warm = warm_seconds(step, dv0, iq0, 2)
-    print(f"  warm step {warm:.3f} s (least of 2) at "
+    warm = warm_seconds(step, dv0, iq0, 1)
+    print(f"  warm step {warm:.3f} s at "
           f"refactor_every=3 vs {warm_re1:.3f} s at refactor_every=1 in "
           f"this run; {calls['bt.factor']} factors vs "
           f"{NEWTON_ITERS + ADJOINTS}")
@@ -956,8 +978,8 @@ def phase_refine1_bench(warm_re1):
                jac)
         expect("K1/K2 launches", launches,
                {"K1": SOLVES_PER_STEP, "K2": SOLVES_PER_STEP})
-        warm = warm_seconds(step, dv0, iq0, 3)
-        print(f"  warm step {warm:.3f} s (least of 3) vs "
+        warm = warm_seconds(step, dv0, iq0, 1)
+        print(f"  warm step {warm:.3f} s vs "
               f"{warm_re1:.3f} s at refactor_every=1 in this run; "
               f"{calls['assemble.jacobian']} Jacobian assemblies vs "
               f"{NEWTON_ITERS + ADJOINTS}")
@@ -3216,6 +3238,8 @@ DYN_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DYN_RUNG = dict(n_shell=[4, 9600], n_vlm=[4, 24], span=21.0, thickness=0.05,
                 dt=0.01, fsi_iters=2, pcg_iters=4, adj_passes=6, n_steps=12)
 DYN_NB = 5176  # its block-tridiagonal layout: nb blocks of B = 128
+# the rung's two-call equal-bits check runs this many steps, not 12
+DYN_REPEAT_STEPS = 2
 # W9's loads: examples/run_aeroelasticity_vpm.py's synthetic restart file
 DYN_SERIES = dict(kind="restart", seed=0, n_samples=24)
 # the CPU tests' eager and jitted configurations at (4, 6) / (2, 4)
@@ -3248,8 +3272,11 @@ DYN_STORAGE = ("rung", "rung_f64")
 # the f64 answer).  It missed DYN_GATES on its first reading (tips rel 62),
 # and the same quantity is gated where the method is admissible in both
 # packages: the wing at 600 spanwise cells (||A M b - b|| / ||b|| 5e-3).
+# rung_f32c (ungated: its factor does not precondition this chain, PERF.md
+# §6) runs one step of the rung, not 12: its K1/K2 launches and its f32
+# factor's sweeps are what it measures
 DYN_FACTORS = {"rung_cr": dict(factor_method="cr"),
-               "rung_f32c": dict(factor_compute_dtype="float32"),
+               "rung_f32c": dict(factor_compute_dtype="float32", n_steps=1),
                "span600_f32c": dict(factor_compute_dtype="float32",
                                     n_shell=[4, 600])}
 DYN_REFS = {"rung_cr": "rung_f64", "rung_f32c": None,
@@ -3442,11 +3469,14 @@ def dyn_factor_option(key, tpl):
     r = dict(build_s=t_b, run_with_grad_s=t, launches=launches,
              forward_step_s=out["forward_s"] / n,
              backward_step_s=out["backward_s"] / n, J=got["J"],
-             grad_norm=float(np.linalg.norm(got["grad"])),
-             vs_jax=dyn_against(
-                 f"fsi dynamic {key}" + ("" if ref else " (not gated)"),
-                 got, dyn_oracle(ref or "rung_f64"),
-                 DYN_GATES["rung_f64"] if ref else {}))
+             grad_norm=float(np.linalg.norm(got["grad"])))
+    if ref:
+        r["vs_jax"] = dyn_against(f"fsi dynamic {key}", got,
+                                  dyn_oracle(ref), DYN_GATES["rung_f64"])
+    else:  # fewer steps than any entry: printed, not compared
+        print(f"  {key} ({n} step(s), not gated): tips "
+              f"{got['tips'].tolist()}, J {got['J']!r}, |grad| "
+              f"{r['grad_norm']!r}")
     print(f"  {key}: forward {r['forward_step_s']:.3f} s a step, backward "
           f"{r['backward_step_s']:.3f} s a step")
     if ref and not all(np.isfinite(v).all() for v in got.values()):
@@ -3551,16 +3581,18 @@ def phase_fsi_dynamic(err):
     res["rung_f64"], out = dyn_rung(f, "rung_f64", False)
     res["storage"] = dyn_storage({"rung": dyn_values(out32),
                                   "rung_f64": dyn_values(out)})
-    del out32
-    t2, out2 = synced(lambda: f["run_with_grad"](f["t0"],
-                                                  DYN_RUNG["n_steps"]))
+    del out32, out
+    # equal bits between two calls: two run_with_grad of DYN_REPEAT_STEPS
+    t2, (out, out2) = synced(lambda: [
+        f["run_with_grad"](f["t0"], DYN_REPEAT_STEPS) for _ in range(2)])
     for k in ("tips", "grad_thickness"):
-        same_bits(f"fsi dynamic rung_f64 {k}, two warm calls",
+        same_bits(f"fsi dynamic rung_f64 {k} over {DYN_REPEAT_STEPS} "
+                  "steps, two calls",
                   torch.as_tensor(out[k]), torch.as_tensor(out2[k]))
-    res["rung_f64"]["second_s"] = t2
+    res["rung_f64"]["repeat_s"] = t2
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  second f64 run_with_grad {t2:.3f} s; peak device memory "
-          f"{res['peak_gib']:.3f} GiB")
+    print(f"  two f64 run_with_grad of {DYN_REPEAT_STEPS} steps {t2:.3f} s; "
+          f"peak device memory {res['peak_gib']:.3f} GiB")
     del out, out2
     carry = f["factor"](f["t0"])
     mat, fac = f["dyn"].bt.unpack(carry)
@@ -3666,6 +3698,166 @@ def phase_facets_3d():
     return out
 
 
+# ---------------------------------------------------------------------------
+# run_scripts: the port's run scripts (femo_tpu_torch/examples/) and the
+# L-BFGS-B driver on the card, each against the JAX package's run of its
+# own script at the same arguments (oracles/examples_oracle.npz, written
+# by oracles/examples_oracle.py)
+# ---------------------------------------------------------------------------
+
+# K1 and K2 launches per evaluation of run_motor_opt --jit on the card.
+# The script's build_motor_jit_step(em_load_steps=3, mm_newton_iters=3,
+# em_newton_iters=3, factorization="block_thomas") keeps pcg_iters=8 and
+# refactor_every=1: ORACLE_CFG but for design_space ("basis"), which
+# changes no solve.  Each Newton iteration (2 mesh-motion load steps x 3,
+# 3 EM load steps x 3) and each of the 2 adjoints is one sweep solve, one
+# PCG start and 8 PCG iterations, one K1 and one K2 launch each.
+JIT_SWEEPS_PER_EVAL = (1 + 1 + 8) * (2 * 3 + 3 * 3 + 2)
+# the other scripts, once each, at the arguments of the oracle entries.
+# Not the shell thickness script: it has no argument, launches no kernel
+# (host Newton with LinearSolver("scipy")), and its first SLSQP iteration
+# alone took 39-65 s here, past this phase's time; tests/
+# test_torch_examples_shell.py holds that iteration against the JAX run
+SCRIPT_KEYS = ("poisson32", "nonlinear_poisson", "topo", "beam",
+               "shell_modal", "roof", "aero_static", "aero_dynamic",
+               "aero_vpm")
+
+
+def script_counted(fn):
+    """(wall seconds, fn(), launches of every kernel) with all the counts
+    set to 0 just before fn and read just after."""
+    reset(bt_sweeps.launches)
+    reset(spmv.launches)
+    t, out = synced(fn)
+    return t, out, dict(bt_sweeps.launches, **spmv.launches)
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def script_motor_jit(oracle):
+    """run_motor_opt --jit --refine 4 --maxiter 3: f64, block Thomas, the
+    script's own bounds and scaling.  Launches, every evaluation and the
+    final (dv, iq) against the JAX run; per-evaluation wall times."""
+    key = "motor_jit_r4"
+    argv = config(oracle, key)["argv"]
+    t, (res, calls), launches = script_counted(
+        lambda: run_example(oracle, key))
+    opt = check_optimizer(oracle, key, calls,
+                          {"f_first": 1e-8, "f": 1e-7, "g0": 1e-6,
+                           "x": 1e-6})
+    want = JIT_SWEEPS_PER_EVAL * res["evaluations"]
+    print(f"run_motor_opt {' '.join(argv)} (f64, block_thomas, mm/em "
+          f"{res['bt']}): {res['evaluations']} evaluations, nit "
+          f"{res['nit']}, {t:.2f} s; losses {res['losses']}")
+    print(f"  vs JAX: evaluations {opt['nfev']} (equal), first loss rel "
+          f"{opt['f_first']:.3e} (bar 1e-8), every loss max rel "
+          f"{opt['f']:.3e} (bar 1e-7), first gradient rel {opt['g0']:.3e} "
+          f"(bar 1e-6), final x rel {opt['x']:.3e} (bar 1e-6); x* "
+          f"{list(res['x'])}")
+    print(f"  launches K1 {launches['K1']}, K2 {launches['K2']} (expected "
+          f"{JIT_SWEEPS_PER_EVAL} x {res['evaluations']} = {want}); "
+          f"evaluation wall s {[round(s, 4) for s in res['seconds']]}, "
+          f"warm mean {res['mean_step_ms']:.1f} ms")
+    expect("run_motor_opt --jit K1/K2 launches",
+           {k: launches[k] for k in ("K1", "K2")}, {"K1": want, "K2": want})
+    return dict(launches=launches, seconds=t, evals=res["evaluations"],
+                eval_s=res["seconds"], warm_ms=res["mean_step_ms"],
+                errors=opt)
+
+
+def script_w1_lbfgsb(oracle):
+    """W1 at nel=260 through build_fea -> FEAModel -> Simulator ->
+    OptimizationProblem -> LBFGSB(maxiter=5): K4/K4T launches against the
+    BiCGStab iterations, every evaluation and the final controls against
+    the JAX run, the wall time of each evaluation."""
+    key = "w1_lbfgsb_nel260"
+    c = config(oracle, key)
+    sim, fea, d = w1_model(c["nel"], "cuda")
+    sim.run()
+    prob = OptimizationProblem(sim, "poisson_lbfgsb")
+    times, obj_grad = [], prob.objective_and_grad
+
+    def timed(x):  # float(value) inside waits for the card
+        t0 = time.perf_counter()
+        out = obj_grad(x)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    prob.objective_and_grad = timed
+    with krylov_log() as log, minimize_log() as calls:
+        t, res, launches = script_counted(
+            lambda: LBFGSB(prob, maxiter=c["maxiter"]).solve())
+        solves = log.take()
+    want = matvecs(solves)
+    opt = check_optimizer(oracle, key, calls, {"f": 1e-8, "x": 1e-6})
+    print(f"W1 LBFGSB(maxiter={c['maxiter']}) at nel={c['nel']} "
+          f"({d['W'].n_dofs} controls), f64: {opt['nfev']} evaluations "
+          f"(JAX the same), nit {res.nit}, {t:.2f} s; objectives "
+          f"{calls[0]['f']}")
+    print(f"  vs JAX: every objective max rel {opt['f']:.3e} (bar 1e-8), "
+          f"final controls rel {opt['x']:.3e} (bar 1e-6); BiCGStab "
+          f"iterations {[(s[0], s[2]) for s in solves]}; launches K4 "
+          f"{launches['K4']} K4T {launches['K4T']} (expected {want['K4']} "
+          f"and {want['K4T']}); evaluation wall s "
+          f"{[round(x, 4) for x in times]}")
+    if not (launches["K4"] == want["K4"] > 0
+            and launches["K4T"] == want["K4T"] > 0):
+        raise AssertionError(f"W1 LBFGSB launches {launches}, want {want}")
+    return dict(launches=launches, seconds=t, evals=opt["nfev"],
+                eval_s=times, errors=opt)
+
+
+def script_motor_snopt(oracle):
+    """run_motor_opt --refine 1 --driver snopt --maxiter 2: SNOPT warns
+    (no binding) and runs SLSQP; the final loss_sum (1e-7) and design
+    (1e-6) against the JAX run."""
+    key = "motor_snopt_r1"
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        t, (res, calls), launches = script_counted(
+            lambda: run_example(oracle, key))
+    if not any("SNOPT binding not available" in str(x.message) for x in w):
+        raise AssertionError("SNOPT did not warn of its missing binding")
+    errs = check_example(oracle, key, res, calls)
+    print(f"run_motor_opt {' '.join(config(oracle, key)['argv'])}: SNOPT "
+          f"warned and ran SLSQP; {res['nit']} iterations, {t:.2f} s; "
+          f"loss_sum {res['initial_loss_sum']!r} -> {res['loss_sum']!r}, "
+          f"shape_dv {list(res['shape_dv'])}, iq {res['iq']!r}; launches "
+          f"{nonzero(launches)}")
+    print(f"  vs JAX: first two evaluations max rel {errs['f_first']:.3e} "
+          f"(bar 1e-7), first gradient rel {errs['g0']:.3e} (bar 1e-6), "
+          f"loss_sum at the JAX run's final design rel "
+          f"{errs['at_jax_design']:.3e} (bar 1e-7); the paths part at the "
+          f"second step (example_parity.FIRST_STEP_ONLY): evaluations "
+          f"{errs['path_nfev']}, last {errs['path_f_last']} (rel "
+          f"{errs['path_f_last_rel']:.3e}), final x port "
+          f"{calls[0]['x'].tolist()}, JAX {oracle[key + '_x'].tolist()} "
+          f"(rel {errs['path_x']:.3e})")
+    return dict(launches=launches, seconds=t, errors=errs)
+
+
+def phase_run_scripts():
+    """The L-BFGS-B motor run at refine 4, W1 through LBFGSB at nel=260,
+    the eager motor script through SNOPT's fallback, then every other
+    script once; the launches of every kernel are counted from 0 around
+    each run."""
+    oracle = load_oracle()
+    out = {"motor_jit_r4": script_motor_jit(oracle),
+           "w1_lbfgsb": script_w1_lbfgsb(oracle),
+           "motor_snopt_r1": script_motor_snopt(oracle)}
+    for key in SCRIPT_KEYS:
+        t, (res, calls), launches = script_counted(
+            lambda key=key: run_example(oracle, key))
+        errs = check_example(oracle, key, res, calls)
+        print(f"{config(oracle, key)['script']} "
+              f"{' '.join(config(oracle, key)['argv'])}: {t:.2f} s; vs "
+              f"JAX {json.dumps(errs)}; launches {nonzero(launches)}")
+        out[key] = dict(launches=launches, seconds=t, errors=errs)
+    return out
+
+
 def kernel_entry(key, name, source, replaces, launches, err, t):
     """One kernel's entry of the kernels line.  ms, plain_ms and
     library_ms are medians of CUDA-event timings of single calls; the
@@ -3708,6 +3900,12 @@ def main():
     femo_tpu_torch.set_precision("float64")
     card = timed_phase("device", seconds, phase_device)
     timed_phase("build", seconds, phase_build)
+    # the run scripts need only the build
+    scripts = timed_phase("run_scripts", seconds, phase_run_scripts)
+    print("run scripts summary: " + json.dumps(scripts))
+    # every run of the phase, its launches counted from 0 around it
+    script_paths = {(k if k == "w1_lbfgsb" else f"script_{k}"): v["launches"]
+                    for k, v in scripts.items()}
     step1, (dv0, iq0), info1 = build_motor_jit_step(refine=1, device="cuda",
                                                     **ORACLE_CFG)
     t, err = timed_phase("kernels", seconds, phase_kernels, info1, dv0, iq0)
@@ -3783,6 +3981,7 @@ def main():
                      dyn["span600_f32c"]["launches"],
                  "fsi_w9": dyn["w9"]["launches"]}
     paths.update(fsi_paths)
+    paths.update(script_paths)
     paths.update({"fsi_dynamic_run": dyn["rung"]["run_launches"],
                   **{f"fsi_dynamic_{k}": v["launches"]
                      for k, v in dyn["eager"].items()}})
@@ -3833,6 +4032,10 @@ def main():
     # (W1, W4, Fm), both designs: the top-level numbers are W1's
     rows[4]["launches_by_path"].update(
         {p: n["K4T"] for p, n in fsi_paths.items()})
+    # K4/K4T on the run scripts' paths that launched them (W1 LBFGSB)
+    for row, k in ((rows[3], "K4"), (rows[4], "K4T")):
+        row["launches_by_path"].update(
+            {p: n[k] for p, n in script_paths.items() if n[k]})
     k4_shapes = t_spmv["K4_shapes"] + [slice_c["topopt"]["k4_times"], t_fm,
                                        t_dyn_fm]
     for row, k in ((rows[3], "K4"), (rows[4], "K4T")):

@@ -17,8 +17,6 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from ..graph.implicit import ImplicitSolveOp
-from ..solvers.linear import LinearSolver
 from .assemble import compile_form
 from .bc import DirichletBC, bc_arrays
 from .forms import FormDef, GlobalCoefficient
@@ -50,6 +48,10 @@ class FEA:
         self.solve_mode = "eager"  # "eager" | "jit_dense"
 
         # solver knobs beyond the reference
+        # imported here: solvers/ and graph/ import fea/, whose package
+        # imports this module
+        from ..solvers.linear import LinearSolver
+
         self.linear_solver = LinearSolver()
         self.newton_opts: dict = {}
 
@@ -167,6 +169,8 @@ class FEA:
                     "state's space — it would be silently dropped")
 
     def _state_op(self, name: str) -> ImplicitSolveOp:
+        from ..graph.implicit import ImplicitSolveOp
+
         s = self.states_dict[name]
         if s["op"] is None:
             self._check_bcs_match_states()

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config import config, get_device
-from .space import Function, FunctionSpace
+from .space import Function, FunctionSpace, TestFunction
 
 
 _DEVICE = [None]  # the device of the form being assembled
@@ -328,7 +328,7 @@ class FormDef:
 
     def __init__(self, integrals: Sequence[Integral],
                  coeffs: Sequence[Function | GlobalCoefficient] = (),
-                 test: FunctionSpace | None = None):
+                 test: FunctionSpace | TestFunction | None = None):
         self.integrals = list(integrals)
         self.coeffs: dict[str, Function] = {}
         self.globals: dict[str, GlobalCoefficient] = {}
@@ -339,6 +339,8 @@ class FormDef:
                     and target.get(f.name) is not f:
                 raise ValueError(f"duplicate coefficient name '{f.name}'")
             target[f.name] = f
+        if isinstance(test, TestFunction):
+            test = test.space
         self.test: FunctionSpace | None = test
         self._assembler = None  # cache, built by the assemble module
 

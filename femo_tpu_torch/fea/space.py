@@ -192,3 +192,11 @@ class Function:
 
     def __repr__(self):
         return f"Function('{self.name}', {self.space})"
+
+
+class TestFunction:
+    """Marker for the test space of a residual form (UFL TestFunction
+    parity): `FormDef(..., test=TestFunction(V))` is `test=V`."""
+
+    def __init__(self, space: FunctionSpace):
+        self.space = space

@@ -1,11 +1,14 @@
 """Optimizer drivers over a Simulator (port of femo_tpu/graph/
-optimizer.py: OptimizationProblem and SLSQP).
+optimizer.py): OptimizationProblem, SLSQP, LBFGSB, ExternalDriver and the
+SNOPT slot.
 
-The optimizer runs on the host (scipy), as in the JAX package; the
+The optimizer runs on the host (scipy, or an external binding through
+ExternalDriver's optimizer-neutral callbacks), as in the JAX package; the
 objective and its IFT adjoint gradient come from the Simulator's
 `objective_gradient` on the model's device.  Scaler semantics match CSDL:
-the optimizer sees ``value * scaler``.  LBFGSB, ExternalDriver and SNOPT
-are not ported.
+the optimizer sees ``value * scaler``.  LBFGSB keeps no dense n x n work
+array (SLSQP keeps ~10.5 n^2 values), so it is the driver for problems
+with many design variables, such as W1's 135,200 controls at nel=260.
 """
 
 from __future__ import annotations
@@ -189,7 +192,7 @@ class SLSQP:
         self.result = None
 
     def solve(self):
-        from scipy.optimize import minimize, NonlinearConstraint
+        from scipy.optimize import minimize
 
         prob = self.prob
         lo, hi = prob.bounds()
@@ -228,3 +231,164 @@ class SLSQP:
     def print_results(self):
         r = self.result
         print(f"SLSQP: success={r.success} iters={r.nit} f={r.fun:.6e}")
+
+
+class LBFGSB:
+    """Bound-constrained quasi-Newton driver (scipy L-BFGS-B) for large
+    unconstrained or bound-only problems."""
+
+    def __init__(self, prob: OptimizationProblem, ftol=1e-12, gtol=1e-10,
+                 maxiter=200):
+        self.prob = prob
+        self.ftol, self.gtol, self.maxiter = ftol, gtol, maxiter
+        self.result = None
+
+    def solve(self):
+        from scipy.optimize import minimize
+
+        prob = self.prob
+        lo, hi = prob.bounds()
+        bounds = list(zip(lo, hi))
+        self.result = minimize(
+            prob.objective_and_grad, prob.x0, jac=True, method="L-BFGS-B",
+            bounds=bounds,
+            options={"ftol": self.ftol, "gtol": self.gtol,
+                     "maxiter": self.maxiter},
+        )
+        prob._set_x(self.result.x)
+        prob.sim.run()
+        return self.result
+
+
+class ExternalDriver:
+    """Binding hook for external optimizers (modOpt/SNOPT parity).
+
+    `driver_factory(callbacks, **driver_opts) -> driver`, where
+    `callbacks` is a plain dict exposing the problem in optimizer-neutral
+    form::
+
+        {
+          "x0": ndarray, "lower": ndarray, "upper": ndarray,
+          "objective": f(x) -> float,
+          "objective_gradient": g(x) -> ndarray,
+          "constraints": [
+            {"name": str, "fun": c(x) -> ndarray, "jac": J(x) -> ndarray,
+             "lower": float|None, "upper": float|None,
+             "equals": float|None},
+          ],
+        }
+
+    and `driver.solve() -> x_opt`.  The optimum is written back into the
+    Simulator, which runs once more there.
+    """
+
+    def __init__(self, prob: OptimizationProblem, driver_factory=None,
+                 **driver_opts):
+        self.prob = prob
+        self.driver_opts = driver_opts
+        self.driver_factory = driver_factory
+        self.result = None
+
+    def callbacks(self) -> dict:
+        prob = self.prob
+        lo, hi = prob.bounds()
+
+        def objective(x):
+            return prob.objective_and_grad(np.asarray(x, float))[0]
+
+        def gradient(x):
+            return prob.objective_and_grad(np.asarray(x, float))[1]
+
+        cons = []
+        for cname, cinfo in prob.model.constraints.items():
+            cval, cjac = prob.constraint_and_jac(cname)
+            cons.append({
+                "name": cname, "fun": cval, "jac": cjac,
+                "lower": cinfo.get("lower"), "upper": cinfo.get("upper"),
+                "equals": cinfo.get("equals"),
+            })
+        return {"x0": prob.x0, "lower": lo, "upper": hi,
+                "objective": objective, "objective_gradient": gradient,
+                "constraints": cons}
+
+    def _finish(self, x_opt):
+        """Write the optimum back into the Simulator and run it there."""
+        self.prob._set_x(np.asarray(x_opt, float))
+        self.prob.sim.run()
+
+    def solve(self):
+        if self.driver_factory is None:
+            raise ValueError("no external driver_factory supplied")
+        driver = self.driver_factory(self.callbacks(), **self.driver_opts)
+        x_opt = np.asarray(driver.solve(), float)
+        self._finish(x_opt)
+        self.result = getattr(driver, "result", x_opt)
+        return self.result
+
+
+class SNOPT(ExternalDriver):
+    """SNOPT driver slot (reference run_motor_opt.py:373-380).
+
+    A `modopt` binding with SNOPT is driven through the ExternalDriver
+    callbacks, the Major_* options passed through as given.  Without a
+    binding, SNOPT warns and runs scipy SLSQP with the tolerances
+    translated (Major_optimality -> ftol, Major_iterations -> maxiter), as
+    the JAX class does, so run scripts that ask for SNOPT run everywhere.
+    """
+
+    def __init__(self, prob: OptimizationProblem,
+                 Major_iterations: int = 100,
+                 Major_optimality: float = 1e-8,
+                 Major_feasibility: float = 1e-6,
+                 append2file: bool = False, **kw):
+        super().__init__(prob)
+        self.opts = dict(Major_iterations=Major_iterations,
+                         Major_optimality=Major_optimality,
+                         Major_feasibility=Major_feasibility,
+                         append2file=append2file, **kw)
+
+    @staticmethod
+    def _find_binding():
+        try:
+            from modopt import SNOPT as _S  # noqa: F401
+
+            return "modopt"
+        except Exception:
+            pass
+        try:
+            import snopt  # noqa: F401
+
+            return "snopt"
+        except Exception:
+            return None
+
+    def solve(self):
+        binding = self._find_binding()
+        if binding is None:
+            import warnings
+
+            warnings.warn(
+                "SNOPT binding not available; falling back to scipy SLSQP "
+                "with translated tolerances")
+            self.result = SLSQP(self.prob,
+                                ftol=self.opts["Major_optimality"],
+                                maxiter=self.opts["Major_iterations"]).solve()
+            return self.result
+        if binding == "modopt":
+            from modopt import SNOPT as _SNOPT
+
+            x_opt = np.asarray(_SNOPT(self.callbacks(), **self.opts).solve(),
+                               float)
+            self._finish(x_opt)
+            self.result = x_opt
+            return self.result
+        # the JAX package has no driver for a bare `snopt` module either
+        raise NotImplementedError(binding)
+
+    def print_results(self):
+        r = self.result
+        if hasattr(r, "success"):
+            print(f"SNOPT(fallback SLSQP): success={r.success} "
+                  f"iters={r.nit} f={r.fun:.6e}")
+        else:
+            print(f"SNOPT: {r}")

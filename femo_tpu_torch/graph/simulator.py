@@ -1,11 +1,13 @@
 """Simulator: eager execution and total derivatives over a Model (port of
 femo_tpu/graph/simulator.py).
 
-`sim[name]` get/set, `run()`, `compute_totals()`, `objective_gradient()`
-and `check_totals()`.  Total derivatives are `torch.autograd` over the
-composed model; implicit solves contribute their IFT backward passes.
-Everything runs eagerly: the JAX package's `jax.jit` cache and its trace
-fallback have no counterpart, because nothing is traced.
+`sim[name]` get/set, `run()`, `compute_totals()`, `objective_gradient()`,
+`check_totals()`, the graph summary (`analytics=True`,
+`visualize_implementation`) and `dump_gradient_fields`.  Total
+derivatives are `torch.autograd` over the composed model; implicit solves
+contribute their IFT backward passes.  Everything runs eagerly: the JAX
+package's `jax.jit` cache and its trace fallback have no counterpart,
+because nothing is traced, and `jit=True` is accepted and does nothing.
 
 Side effects: `run()` persists each state's warm start (and writes
 recorders); derivative evaluations run the model in pure mode, which
@@ -24,10 +26,17 @@ from .model import Model
 
 
 class Simulator:
-    def __init__(self, model: Model):
+    """analytics=True prints the op graph's summary after every `run()`.
+    jit is taken for the JAX package's signature: the port is eager, so
+    it changes nothing."""
+
+    def __init__(self, model: Model, analytics: bool = False,
+                 jit: bool = False):
         self.model = model
         self.values: dict[str, torch.Tensor] = dict(model.defaults)
         self.outputs: dict[str, torch.Tensor] = {}
+        self.analytics = analytics
+        self.jit = jit
 
     # -- value access (sim['f'] parity) -----------------------------------------
     def __getitem__(self, name):
@@ -43,7 +52,39 @@ class Simulator:
     def run(self):
         with torch.no_grad():
             self.outputs = self.model.evaluate(self.values)
+        if self.analytics:
+            print(self._graph_summary())
         return self.outputs
+
+    # -- graph introspection ---------------------------------------------------
+    def _graph_summary(self) -> str:
+        m = self.model
+        lines = [f"model graph: {len(m.operations)} operations, "
+                 f"{len(m.design_variables)} design variable(s), "
+                 f"{len(m.constraints)} constraint(s), "
+                 f"objective={m.objective['name'] if m.objective else None}"]
+        for op in m.operations:
+            outs = []
+            for o in op.outputs:
+                v = self.outputs.get(o)
+                shp = tuple(v.shape) if v is not None else "?"
+                outs.append(f"{o}{shp}")
+            lines.append(f"  {op.name}: ({', '.join(op.inputs)}) -> "
+                         f"{', '.join(outs)}")
+        return "\n".join(lines)
+
+    def visualize_implementation(self, path: str | None = None) -> str:
+        """Text rendering of the op graph (the reference's N2-diagram
+        toggle): runs the model first if it has no outputs, prints the
+        summary, writes it to `path` if given, and returns it."""
+        if not self.outputs:
+            self.run()
+        s = self._graph_summary()
+        if path:
+            with open(path, "w") as f:
+                f.write(s + "\n")
+        print(s)
+        return s
 
     @contextlib.contextmanager
     def _pure(self):
@@ -128,3 +169,28 @@ class Simulator:
             if compact_print:
                 print(f"check_totals d({of})/d({w}): rel FD error = {rel:.3e}")
         return report
+
+    def dump_gradient_fields(self, of, wrt, space, path, step=1e-6):
+        """Write the analytic, finite-difference and error gradient FIELDS
+        d(of)/d(wrt) to XDMF (three Functions on `space`) for visual
+        checks.  `wrt` must be a dof-vector design variable on `space`
+        (one FD evaluation per dof, as check_totals); raises ValueError
+        when the gradient's size is not the space's dof count.  Returns
+        the check_totals report entry for (of, wrt)."""
+        from ..fea.space import Function
+        from ..io.xdmf import XDMFWriter
+
+        rep = self.check_totals(of, [wrt], step=step,
+                                compact_print=False)[(of, wrt)]
+        an, fd = rep["analytic"].ravel(), rep["fd"].ravel()
+        if an.size != space.n_dofs:
+            raise ValueError(
+                f"gradient d({of})/d({wrt}) has {an.size} entries, but "
+                f"space has {space.n_dofs} dofs — pass the design "
+                f"variable's own FunctionSpace")
+        with XDMFWriter(path, space.mesh) as w:
+            for name, arr in ((f"d{of}_d{wrt}_analytic", an),
+                              (f"d{of}_d{wrt}_fd", fd),
+                              (f"d{of}_d{wrt}_error", an - fd)):
+                w.write_function(Function(space, name, arr))
+        return rep

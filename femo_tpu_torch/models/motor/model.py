@@ -227,11 +227,9 @@ def build_motor_model(refine: float = 1, iq0: float = 1.0e5,
     card.  design_space: "basis" (2 dvs) or "edge_deltas" (one (dx, dy)
     per magnet-ring interface node; with ffd_harmonics, a Fourier layer in
     front).  `device` defaults to `config.device` (the card).  record=True
-    (the XDMF recorder) is not ported and raises.
+    writes the |B| field at every run to an XDMF series under
+    ./records_motor (io/xdmf.py's Recorder; h5py).
     """
-    if record:
-        raise NotImplementedError("record=True: the XDMF recorder is not "
-                                  "ported")
     if design_space not in ("edge_deltas", "basis"):
         raise ValueError(f"unknown design_space {design_space!r}")
     device = get_device(device)
@@ -290,8 +288,13 @@ def build_motor_model(refine: float = 1, iq0: float = 1.0e5,
     Vcg1 = FunctionSpace(mesh, ("CG", 1), device=device)
     fea_em.add_field_output("B_magnitude",
                             b_field_output_form(A_z, uhat, Vcg1),
-                            ["A_z", "uhat"])
-    model = FEAModel(fea=[fea_mm, fea_em])
+                            ["A_z", "uhat"], record=record)
+    recorder = None
+    if record:
+        from ...io.xdmf import Recorder
+
+        recorder = Recorder("records_motor")
+    model = FEAModel(fea=[fea_mm, fea_em], recorder=recorder)
 
     # pre-operations: shape dv -> [ffd ->] uhat_bc; (iq, angle) -> tables
     pre_ops = []

@@ -469,15 +469,17 @@ class BlockTridiagFactorization:
     """Factorization-interface adapter (solvers/linear.py): the
     BC-constrained operator of an ElementMatrix in block-tridiagonal form,
     block-Thomas factored; `solve_t` factors the transpose at its first
-    call."""
+    call.  `refine` steps of iterative refinement follow every solve,
+    against the matrix (`solve`) or its transpose (`solve_t`)."""
 
-    def __init__(self, emat, free):
+    def __init__(self, emat, free, refine: int = 0):
         self.mat = BlockTridiagonalMatrix.from_element_matrix(emat, free)
         self._f = self.mat.factor()
         self._ft = None
+        self.refine = refine
 
     def solve(self, b):
-        return self._f.solve(b)
+        return self._f.solve_refined(b, self.refine)
 
     def transpose_factor(self) -> BlockThomasFactor:
         if self._ft is None:
@@ -485,7 +487,7 @@ class BlockTridiagFactorization:
         return self._ft
 
     def solve_t(self, b):
-        return self.transpose_factor().solve(b)
+        return self.transpose_factor().solve_refined(b, self.refine)
 
 
 class BlockTridiagTemplate:

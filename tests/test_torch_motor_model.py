@@ -192,8 +192,15 @@ class warnings_as_list:
 
 
 def test_record_raises():
-    with pytest.raises(NotImplementedError, match="recorder"):
-        build_motor_model(refine=0.5, record=True, device="cpu")
+    """record=True no longer raises: the model carries the XDMF Recorder
+    of the JAX package's model (records_motor, the |B| field recorded);
+    tests/test_torch_optimizer_drivers.py runs it against the JAX files."""
+    from femo_tpu_torch.io.xdmf import Recorder
+
+    model, d = build_motor_model(refine=0.5, record=True, device="cpu")
+    assert isinstance(model.recorder, Recorder)
+    assert model.recorder.path == "records_motor"
+    assert d["fea_em"].outputs_field_dict["B_magnitude"]["record"]
 
 
 def test_unstructured_generator_equals_jax():
