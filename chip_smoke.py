@@ -152,10 +152,10 @@ non-zero without the final line:
    24-pass coupled adjoint): the build (the host template), the first
    solve_with_grad with K1/K2/K4T counted (K1 and K2 once per inner solve
    and per preconditioner application that pcg_tol reports, K4T once per
-   adjoint pass), a warm one with its stage seconds (fill, factor core,
-   Gauss-Seidel, finalize, adjoint), equal bits
-   between the two calls, peak device memory, rel_delta, adj_delta and the
-   PCG iteration counts; force conservation (1e-13); the tip against
+   adjoint pass) and its stage seconds, synced (fill, factor core,
+   Gauss-Seidel, finalize, adjoint), peak device memory, rel_delta,
+   adj_delta and the PCG iteration counts (no warm repeat: a depth cut,
+   PERF.md §6); force conservation (1e-13); the tip against
    the exact solution of its own last linear system, solved apart from
    the block-Thomas path by banded LU with partial pivoting on the host
    and refined with longdouble residuals (FSI_GATES' anchor_solve);
@@ -168,8 +168,8 @@ non-zero without the final line:
    counted, against the JAX package's anchor entry (tip and objective
    2e-2, gradient 4e-2: FSI_GATES' anchor_f64); the anchor with block
    cyclic reduction in that f64-storage configuration, built on the
-   anchor's template: one counted solve_with_grad (K4T 24, no K1/K2) and
-   a second with its stages timed, equal bits, peak memory, force
+   anchor's template: one counted solve_with_grad (K4T 24, no K1/K2)
+   with its stages timed, peak memory, force
    conservation (1e-13), the tip against the exact solution of its own
    last system (no farther than the unrefined pivoted LU of that system:
    FSI_GATES' anchor_cr_solve), tip and objective against the port's Thomas
@@ -235,22 +235,53 @@ non-zero without the final line:
    and gradient 1e-6, later losses 1e-7, final x 1e-6; per-evaluation
    wall times), W1 at nel=260 through LBFGSB(maxiter=5) (K4/K4T launches
    = BiCGStab's matvecs; every objective 1e-8, final controls 1e-6),
-   run_motor_opt --refine 1 --driver snopt --maxiter 2 (SNOPT's warning;
-   the first two evaluations 1e-7, the first gradient 1e-6, loss_sum at
-   the JAX run's final design 1e-7: the paths part at SLSQP's second
-   step), then every other script once at small arguments (objectives
+   run_motor_opt --refine 1 --driver snopt --maxiter 1 (SNOPT's warning;
+   one SLSQP iteration, whose two evaluations agree with JAX's at 1e-7,
+   the first gradient and final design at 1e-6; the paths would part at
+   a second step), then every other script once at small arguments (objectives
    1e-8, designs 1e-6; topo at its first evaluation and the JAX run's
    final design, the roof at 10x the JAX package's spread between its
    two solves; not the shell thickness script, SCRIPT_KEYS says why);
    all kernel counts set to 0 around each run.
+28. distributed (run last, after the side processes below have ended,
+   and after phase 16, whose unsharded step it reuses): 4 ranks on the
+   one card (femo_tpu_torch/parallel/launch.spawn; gloo,
+   since NCCL refuses two ranks on one device; CUDA tensors, f64), K4's
+   library built here before they start (tools/distributed_check.py).
+   Mode b: run_distributed_poisson.py's system at nel=260 (135,200
+   cells, 68,121 dofs) dof-sharded over the ranks, the layout's L/G/S
+   equal to the JAX package's, a cold and a warm Jacobi CG to rtol 1e-8,
+   each rank's K4 count set to 0 just before each and required to equal
+   the CG's matvecs (iterations + 1), K4 against its plain version on one
+   local product of each rank (f64 1e-14 of its largest entry), the split
+   of an iteration's time (halo exchanges, K4, a dot); the gathered x
+   against the JAX package's run over 4 devices (oracles/
+   distributed_oracle.npz) at DIST_GATES: the true residual with the
+   plain matvec (2e-8), the distance to the exact solution (10x the JAX
+   package's own), the iterations (3%); the same CG on a group of one
+   rank, at the same bars; K4/K4T timed at rank 0's local shape (33,800
+   3x3 elements).  Mode a: build_jit_opt_step(nel=260) against phase
+   16's unsharded step, build_motor_jit_step(refine=1) with the oracle
+   configuration's counts and dense LU against oracles/motor_oracle.npz's
+   r1_lu, build_shell_sharded_step(n_shell=(3, 4)) against the oracle
+   file; value 1e-8, gradient 1e-6; every rank's values equal bit for
+   bit.  A rank that raises makes the phase raise.
+
+Phases 23-25 run beside the main sequence: right after the build two
+side processes start (`chip_smoke.py --side fsi|fsi_dynamic OUT`, the
+same phases, their results written as JSON to OUT), and the main
+sequence waits for both before phase 28, printing each one's output
+then.  A side that fails or outlasts SIDE_LIMIT fails the script, and
+every side still running when the script fails is killed.
 
 Each phase prints its wall seconds.  It prints a JSON line describing
 the kernels (K1/K2 with their launches on every motor path, the
 shell's and FSI's, W8's and W9's (0 on the cyclic-reduction paths), with
 their f32 times on the f32 factors, K4/K4T on W1, W1 with weak BCs, W2
 and W4, K4T on FSI's and W8's Fm, and the run scripts' paths
-(`launches_by_path`), with K4/K4T's times at W1's, W4's
-and both Fm shapes),
+(`launches_by_path`; the distributed halo CG's K4 summed over
+the ranks, and by rank), with K4/K4T's times at W1's, W4's,
+both Fm shapes and a halo rank's local shape),
 and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -258,13 +289,13 @@ and last
 from __future__ import annotations
 
 import collections
-import contextlib
 import functools
 import gc
 import json
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -312,6 +343,9 @@ from femo_tpu_torch.ops.block_tridiag import (
 from femo_tpu_torch.solvers.krylov import cg
 from femo_tpu_torch.solvers.linear import (
     BlockThomasKrylovFactorization, KrylovFactorization, LinearSolver)
+from femo_tpu_torch.parallel.halo import HaloShardedOperator
+from femo_tpu_torch.parallel.sharding import RankMesh
+from femo_tpu_torch.tools import distributed_check
 from femo_tpu_torch.tools.example_parity import (
     check_example, check_optimizer, config, load_oracle, run_example)
 from femo_tpu_torch.tools.fsi_conditioning import direct_witness
@@ -1820,13 +1854,13 @@ def slice_c_oracle(key):
 
 
 def check_oracle_values(label, val, grad, want_val, want_grad, loss_tol,
-                        grad_tol):
+                        grad_tol, ref="JAX"):
     """A value (relative) and a gradient (relative L2) against the JAX
-    package's."""
+    package's (or `ref`'s)."""
     g = grad.detach().cpu().numpy().reshape(np.shape(want_grad))
     rl = abs(float(val) - float(want_val)) / abs(float(want_val))
     rg = float(np.linalg.norm(g - want_grad) / np.linalg.norm(want_grad))
-    print(f"  {label}: value {float(val)!r}, JAX {float(want_val)!r}, rel "
+    print(f"  {label}: value {float(val)!r}, {ref} {float(want_val)!r}, rel "
           f"{rl:.3e} (tol {loss_tol:.0e}); gradient ({g.size}) rel L2 "
           f"{rg:.3e} (tol {grad_tol:.0e})")
     if not (rl <= loss_tol and rg <= grad_tol and np.all(np.isfinite(g))):
@@ -2164,16 +2198,18 @@ def phase_jit_step():
     check_oracle_values(f"jit step nel={c['nel']} cg", val, g,
                         oracle["jit_step_loss"], oracle["jit_step_grad"],
                         1e-8, 1e-6)
-    t_warm, _ = synced(lambda: step(f0))
     fn, args = entry()
     t_e, (ev, eg) = synced(lambda: fn(*args))
     check_oracle_values(f"entry() nel={ce['nel']} dense", ev, eg,
                         oracle["entry_loss"], oracle["entry_grad"], 1e-12,
                         1e-10)
     t_ew, _ = synced(lambda: fn(*args))
-    print(f"  wall time: jit step first {t_cold:.3f} s, warm {t_warm:.3f} "
-          f"s; entry() first {t_e:.3f} s, warm {t_ew:.3f} s")
-    return dict(cold=t_cold, warm=t_warm, entry=t_ew)
+    # no warm repeat of the jit step (a depth cut: PERF.md §6)
+    print(f"  wall time: jit step first {t_cold:.3f} s; entry() first "
+          f"{t_e:.3f} s, warm {t_ew:.3f} s")
+    # the distributed phase's mode-a Poisson step is held to this one
+    return dict(cold=t_cold, entry=t_ew,
+                ref=(float(val), g.detach().cpu().numpy()))
 
 
 def energy_form(nel, device):
@@ -2731,8 +2767,10 @@ FSI_GATES = dict(conservation=1e-13, anchor_solve=1e-3,
                  mid_f64=dict(tip=2.5e-3, objective=2.5e-3, grad=5e-3),
                  rung_f64=dict(tip=1.5e-5, objective=1.5e-5, grad=6e-5),
                  residual=1e-12, anchor_cr=1e-3)
-FSI_WARM = 1  # a warm call: equal bits with the first, and its stages
-FSI_CR_CALLS = 2  # calls of the CR anchor: equal bits, the last one timed
+# the anchor's Thomas and CR runs are one call each, their stages timed
+# on it: the warm repeats and their equal-bits checks are depth cut to
+# keep the script in its time (PERF.md §6); the W8 rung's pair of calls
+# holds the bits of the same FSI solve path
 
 
 def fsi_config(key):
@@ -2784,10 +2822,11 @@ def conservation(out):
     return float(torch.linalg.norm(m - a) / torch.linalg.norm(a))
 
 
-def fsi_counted(label, f, rounds):
+def fsi_counted(label, f, rounds, sync=False):
     """f's solve_with_grad with K1/K2/K4T and the solver's counts reset
     just before and read just after, the stages counted by the step
-    profiler's FSI ranges: (seconds, outputs, launches, stats, calls).
+    profiler's FSI ranges (and timed, synced, with sync=True): (seconds,
+    outputs, launches, stats, calls, stage seconds).
     K1 and K2 must each launch once per inner solve and once per
     preconditioner application of its PCG polish (with block Thomas; with
     cyclic reduction, whose solves are batched torch calls, never); K4T
@@ -2795,7 +2834,7 @@ def fsi_counted(label, f, rounds):
     reset(bt_sweeps.launches)
     reset(spmv.launches)
     f["stats"].update(solves=0, precond=0, pcg_iters=[])
-    with layer_ranges(FSI_LAYERS) as lr:
+    with layer_ranges(FSI_LAYERS, sync=sync) as lr:
         t, out = synced(lambda: f["solve_with_grad"](f["t0"], rounds=rounds))
     launches = {**bt_sweeps.launches, "K4T": spmv.launches["K4T"]}
     stats = dict(f["stats"])
@@ -2817,7 +2856,9 @@ def fsi_counted(label, f, rounds):
           f"right-hand sides")
     if launches != want or launches["K4T"] == 0 or stats["solves"] == 0:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
-    return t, out, launches, stats, dict(lr.calls)
+    stages = {k: lr.seconds[f"fsi.{k}"]
+              for k in ("fill", "factor_core", "gs", "finalize", "adjoint")}
+    return t, out, launches, stats, dict(lr.calls), stages
 
 
 def fsi_outputs(out):
@@ -2874,8 +2915,8 @@ def fsi_vs_jax(key, bars):
     t_build, f = synced(lambda: fsi_build(c))
     print(f"fsi {key} {c}: {f['n_cells']} cells, {f['n_dofs']} dofs, "
           f"nb={f['tpl'].nb}; build {t_build:.2f} s")
-    t, out, launches, stats, _ = fsi_counted("solve_with_grad", f,
-                                              c["rounds"])
+    t, out, launches, stats, _, _ = fsi_counted("solve_with_grad", f,
+                                                 c["rounds"])
     r = fsi_outputs(out)
     print(f"  conservation {r['conservation']:.3e}; rel_delta "
           f"{r['rel_delta']:.3e} (JAX {float(want['rel_delta']):.3e}), "
@@ -2987,7 +3028,7 @@ def fsi_anchor_f64(f, rounds):
     anchor_f64 bars; force conservation."""
     want = fsi_oracle("anchor_f64")
     f["step"].bt.store = fsi_config("anchor_f64")["factor_store_dtype"]
-    t, out, launches, stats, _ = fsi_counted(
+    t, out, launches, stats, _, _ = fsi_counted(
         "f64-storage solve_with_grad", f, rounds)
     r = fsi_outputs(out)
     print(f"  f64 storage: conservation {r['conservation']:.3e}; rel_delta "
@@ -3037,8 +3078,7 @@ def fsi_anchor_cr(tpl, thomas, t_sweeps):
     """The anchor in its f64-storage configuration with block cyclic
     reduction (fsi_config("anchor_cr_f64")), built on the anchor's
     template `tpl`: one solve_with_grad with its launches counted (K4T as
-    with Thomas, no K1/K2) and FSI_CR_CALLS - 1 more with their stages
-    timed, equal bits between two calls, peak device memory; force
+    with Thomas, no K1/K2) and its stages timed, peak device memory; force
     conservation (1e-13); the tip against the exact solution of its own
     last system (fsi_solve_witness, at the unrefined LU's distance:
     FSI_GATES' anchor_cr_solve); tip and objective against the
@@ -3055,29 +3095,18 @@ def fsi_anchor_cr(tpl, thomas, t_sweeps):
     t_build, f = synced(lambda: fsi_build(c, template=tpl))
     print(f"fsi anchor_cr_f64 {c}: build on the anchor's template "
           f"{t_build:.2f} s")
-    t_first, out, launches, stats, calls = fsi_counted(
-        "cr solve_with_grad", f, c["rounds"])
-    outs = [out]
-    for i in range(FSI_CR_CALLS - 1):
-        with layer_ranges(FSI_LAYERS, sync=True) as lr:
-            t_warm, o = synced(lambda: f["solve_with_grad"](
-                f["t0"], rounds=c["rounds"]))
-        outs.append(o)
+    t_first, out, launches, stats, calls, stages = fsi_counted(
+        "cr solve_with_grad", f, c["rounds"], sync=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    stages = {k: lr.seconds[f"fsi.{k}"]
-              for k in ("fill", "factor_core", "gs", "finalize", "adjoint")}
-    for k in ("tip_disp", "grad_thickness"):
-        same_bits(f"fsi anchor cr {k}, two calls", outs[0][k], outs[-1][k])
     r = fsi_outputs(out)
-    print(f"  cr: warm solve_with_grad {t_warm:.3f} s (first {t_first:.3f} "
-          f"s); stages {({k: round(v, 3) for k, v in stages.items()})} s; "
+    print(f"  cr: solve_with_grad {t_first:.3f} s; stages (synced) "
+          f"{({k: round(v, 3) for k, v in stages.items()})} s; "
           f"peak device memory {peak:.3f} GiB; conservation "
           f"{r['conservation']:.3e}; rel_delta {r['rel_delta']:.3e}, "
           f"adj_delta {r['adj_delta']:.3e}")
     if not r["conservation"] <= FSI_GATES["conservation"]:
         raise AssertionError("fsi anchor cr: forces not conserved")
     last = {k: out[k] for k in ("disp_fluid", "x", "tip_disp")}
-    del outs, o
     D, L, U = f["fill"](f["t0"])
     mat = f["step"].bt.matrix(D, L, U)
     witness = fsi_solve_witness(f, mat, last, lu_bar=True)
@@ -3094,14 +3123,14 @@ def fsi_anchor_cr(tpl, thomas, t_sweeps):
     times = cr_times(mat, "anchor operator", reps=2)
     pair = t_sweeps["K1"] + t_sweeps["K2"]
     print(f"  Thomas on this card: sweeps K1 + K2 {pair:.4f} ms a solve "
-          f"(events), warm solve_with_grad "
-          f"{thomas['warm_median_s']:.3f} s, factor core "
+          f"(events), solve_with_grad "
+          f"{thomas['first_s']:.3f} s, factor core "
           f"{thomas['stages_s']['factor_core']:.3f} s, peak "
           f"{thomas['peak_gib']:.3f} GiB")
     del mat, out
     t32, f32 = f32_factor_sweeps(f, f["step"].bt, "fsi anchor operator",
                                  59)
-    r.update(build_s=t_build, first_s=t_first, warm_s=t_warm,
+    r.update(build_s=t_build, first_s=t_first,
              stages_s=stages, peak_gib=peak, launches=launches, stats=stats,
              calls=calls, witness=witness, vs_thomas=vs, times=times,
              f32=f32)
@@ -3113,8 +3142,7 @@ def phase_fsi(err):
     32), span=30, thickness=0.05) in the JAX package's anchor solver
     (FSI_SOLVER), f64, on the card: the build (the host template), the
     first solve_with_grad with its launches and stages counted
-    (fsi_counted), FSI_WARM warm ones (median; the last with its stage
-    seconds; the first and the last give equal bits), peak device memory,
+    (fsi_counted, its stage seconds synced), peak device memory,
     force conservation; then on the anchor's own factor, operator and Fm the
     tip against the exact solution of its last system and the kernels
     against plain (check_fsi_kernels); the anchor with f64 factor storage
@@ -3135,29 +3163,13 @@ def phase_fsi(err):
           f"{f['n_panels']} panels, nb={tpl.nb} B={tpl.B} (RCM bandwidth "
           f"{tpl.bw}), assembly chunk {f['assembly_chunk']}; build "
           f"{t_build:.2f} s")
-    t_first, out, launches, stats, calls = fsi_counted(
-        "first solve_with_grad", f, c["rounds"])
+    t_first, out, launches, stats, calls, stages = fsi_counted(
+        "first solve_with_grad", f, c["rounds"], sync=True)
     first = fsi_outputs(out)
-    warm, outs = [], []
-    for i in range(FSI_WARM):
-        # the last one's stages timed by their FSI_LAYERS ranges, synced
-        with layer_ranges(FSI_LAYERS, sync=True) if i == FSI_WARM - 1 \
-                else contextlib.nullcontext() as lr:
-            t, o = synced(lambda: f["solve_with_grad"](f["t0"],
-                                                       rounds=c["rounds"]))
-        warm.append(t)
-        outs.append(o)
     peak = torch.cuda.max_memory_allocated()
-    stages = {k: lr.seconds[f"fsi.{k}"]
-              for k in ("fill", "factor_core", "gs", "finalize", "adjoint")}
-    print(f"  warm solve_with_grad {[round(w, 3) for w in warm]} s, median "
-          f"{statistics.median(warm):.3f} s; stages of the last "
+    print(f"  stages (synced) "
           f"{ {k: round(v, 3) for k, v in stages.items()} } s; peak "
           f"device memory {peak / 2**30:.3f} GiB")
-    same_bits("fsi anchor tip, first and warm", out["tip_disp"],
-              outs[-1]["tip_disp"])
-    same_bits("fsi anchor gradient, first and warm", out["grad_thickness"],
-              outs[-1]["grad_thickness"])
     g = out["grad_thickness"]
     print(f"  tip {first['tip']!r} (the JAX package's TPU records: "
           f"17.66-17.69, PERF.md §6); force conservation "
@@ -3171,16 +3183,16 @@ def phase_fsi(err):
     if not (g.shape == (f["n_cells"],) and bool(torch.isfinite(g).all())):
         raise AssertionError("fsi anchor gradient is not finite")
     last = {k: out[k] for k in ("disp_fluid", "x", "tip_disp")}
-    del outs, out, o
+    del out
     t_sweeps, t_fm, k4_err, witness = check_fsi_kernels(f, err, last)
-    res = dict(witness=witness, build_s=t_build, first_s=t_first, warm_s=warm,
-               warm_median_s=statistics.median(warm), stages_s=stages,
+    res = dict(witness=witness, build_s=t_build, first_s=t_first,
+               stages_s=stages,
                peak_gib=peak / 2**30, launches=launches, stats=stats,
                calls=calls, n_cells=f["n_cells"], n_dofs=f["n_dofs"],
                nb=tpl.nb, B=tpl.B, **first)
     res["anchor_f64"] = fsi_anchor_f64(f, c["rounds"])
     del f
-    thomas = dict(res["anchor_f64"], warm_median_s=res["warm_median_s"],
+    thomas = dict(res["anchor_f64"], first_s=res["first_s"],
                   stages_s=stages, peak_gib=res["peak_gib"])
     res["anchor_cr"], t_f32 = fsi_anchor_cr(tpl, thomas, t_sweeps)
     del tpl
@@ -3699,6 +3711,170 @@ def phase_facets_3d():
 
 
 # ---------------------------------------------------------------------------
+# distributed: mode b (the dof-sharded halo CG, K4 inside each rank) and
+# mode a (the cells-sharded Poisson, motor and shell steps) on 4 ranks
+# that share the card through gloo (femo_tpu_torch/parallel/,
+# femo_tpu_torch/tools/distributed_check.py)
+# ---------------------------------------------------------------------------
+
+DIST_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "oracles", "distributed_oracle.npz")
+DIST = dict(ranks=4, nel=260, rtol=1e-8, poisson_nel=260, motor_refine=1,
+            shell_shape=(3, 4))
+# the oracle entries they are held to: the halo CG's (halo260_*) and the
+# motor's in oracles/motor_oracle.npz
+DIST_KEYS = dict(halo="halo260", motor="r1_lu")
+# fixed before the first run on the card.  Mode b: a CG stopped at rtol
+# 1e-8 fixes x only to what its stopping test allows, so x is held to the
+# exact solution, not to JAX's x: the true relative residual of the
+# gathered x, its distance to the exact solution within `dist_factor`
+# times the JAX package's own, its iterations within `iters` of JAX's.
+# Mode a: value and gradient (relative L2).
+DIST_GATES = dict(residual=2e-8, dist_factor=10.0, iters=0.03,
+                  value=1e-8, grad=1e-6)
+
+
+def constrained_plain(A, free, x):
+    """The BC-constrained operator P A P + (I - P) applied with K4's plain
+    version."""
+    xf = torch.where(free, x, 0.0)
+    y = sum(spmv.element_spmv_plain(b.A, b.rows, b.cols, xf, A.shape[0])
+            for b in A.blocks)
+    return torch.where(free, y, x)
+
+
+def halo_gates(label, x, iters, A, free, oracle):
+    """A gathered mode-b solution of A x = 1 against DIST_GATES and the
+    JAX package's run (oracle DIST_KEYS["halo"])."""
+    x = torch.as_tensor(x, device=DEVICE)
+    h = DIST_KEYS["halo"]
+    b = torch.ones_like(x)
+    res = float(torch.linalg.norm(b - constrained_plain(A, free, x))
+                / torch.linalg.norm(b))
+    xe = torch.as_tensor(oracle[f"{h}_x_exact"], device=DEVICE)
+    d = float(torch.linalg.norm(x - xe) / torch.linalg.norm(xe))
+    jd, ji = float(oracle[f"{h}_dist"]), int(oracle[f"{h}_iters"])
+    jx = torch.as_tensor(oracle[f"{h}_x"], device=DEVICE)
+    g = DIST_GATES
+    print(f"  {label}: {iters} iterations (JAX {ji}, bar +-"
+          f"{g['iters']:.0%}); true residual ||b - A x||/||b|| {res:.3e} "
+          f"(bar {g['residual']:.0e}); distance to the exact solution "
+          f"{d:.3e} (JAX {jd:.3e}, bar {g['dist_factor']:.0f}x = "
+          f"{g['dist_factor'] * jd:.3e}); x rel to JAX's x "
+          f"{float(torch.linalg.norm(x - jx) / torch.linalg.norm(jx)):.3e}"
+          " (not gated)")
+    if not (res <= g["residual"] and d <= g["dist_factor"] * jd
+            and abs(iters - ji) <= g["iters"] * ji):
+        raise AssertionError(f"{label}: the distributed CG misses its bars")
+    return dict(iterations=iters, true_residual=res, dist_exact=d,
+                jax_iterations=ji, jax_dist=jd)
+
+
+def phase_distributed(jit_ref):
+    """4 ranks on the card (gloo, CUDA tensors, f64): mode b at the
+    example's nel=260 against the JAX oracle and on one rank; K4 per rank
+    (its launches against the CG's matvecs, against its plain version)
+    and timed at rank 0's local shape; mode a's three steps against the
+    port's unsharded Poisson step (`jit_ref`, phase jit_step), the motor
+    oracle's r1_lu and the shell oracle entry."""
+    oracle = np.load(DIST_ORACLE)
+    t0 = time.perf_counter()
+    res = distributed_check.run(device=DEVICE, **DIST)
+    t_spawn = time.perf_counter() - t0
+    h0 = res[0]["halo"]
+    print(f"distributed: {DIST['ranks']} ranks on one card (gloo), f64; "
+          f"mode b nel={DIST['nel']} ({h0['n_cells']} cells, "
+          f"{h0['n_dofs']} dofs), layout L/G/S {h0['L']}/{h0['G']}/"
+          f"{h0['S']} (JAX "
+          + "/".join(str(int(oracle[f"{DIST_KEYS['halo']}_{k}"]))
+                     for k in "LGS") + "); "
+          f"{t_spawn:.1f} s for the pool")
+    expect("halo layout L/G/S", (h0["L"], h0["G"], h0["S"]),
+           tuple(int(oracle[f"{DIST_KEYS['halo']}_{k}"]) for k in "LGS"))
+    A, free, V = distributed_check.halo_system(DIST["nel"], DEVICE)
+    k4 = []
+    for r in res:
+        h = r["halo"]
+        tol = SPMV_TOL[torch.float64] * h["k4_max_abs"]
+        print(f"  rank {h['rank']}: {h['n_owned']} owned, {h['n_ghosts']} "
+              f"ghosts, {h['n_elements']} elements; K4 vs plain max abs "
+              f"{h['k4_max_abs_err']:.3e} (tol {tol:.1e}); cold CG "
+              f"{h['cold']['iterations']} iterations, K4 {h['cold']['k4']} "
+              f"launches; warm {h['warm']['iterations']}, K4 "
+              f"{h['warm']['k4']}, {h['warm']['ms_per_iteration']:.3f} ms "
+              f"an iteration; split (ms a call): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in h["split_ms"].items())
+              + f"; assembly {h['assembly_s']:.2f} s, layout "
+              f"{h['layout_s']:.2f} s")
+        for run in ("cold", "warm"):
+            want = h[run]["iterations"] + 1  # + the initial residual's
+            if not (h[run]["k4"] == want > 1):
+                raise AssertionError(f"rank {h['rank']} {run} CG: K4 "
+                                     f"{h[run]['k4']}, matvecs {want}")
+            expect("iterations on every rank", h[run]["iterations"],
+                   h0[run]["iterations"])
+        if not h["k4_max_abs_err"] <= tol:
+            raise AssertionError(f"rank {h['rank']}: K4 disagrees with "
+                                 "its plain version")
+        k4.append(h["cold"]["k4"])
+    four = halo_gates(f"{DIST['ranks']} ranks", h0["x"],
+                      h0["warm"]["iterations"], A, free, oracle)
+    one = h0["one_rank"]
+    print(f"  one rank (L {one['L']}, G {one['G']}): K4 {one['k4']} "
+          f"launches, {one['seconds']:.3f} s "
+          f"({one['seconds'] / max(one['iterations'], 1) * 1e3:.3f} ms an "
+          f"iteration)")
+    expect("one-rank K4 launches", one["k4"], one["iterations"] + 1)
+    single = halo_gates("one rank", one["x"], one["iterations"], A, free,
+                        oracle)
+    # K4 at rank 0's local shape on the otherwise idle card: rank 0's
+    # elements and local slots, built here without a process group
+    op0 = HaloShardedOperator(A, V.dofmap, V.n_dofs, RankMesh(
+        None, 0, DIST["ranks"], torch.device(DEVICE)), free=free)
+    expect("rank 0's elements", op0.n_elements, h0["n_elements"])
+    t_k4 = time_element(f"halo rank 0 of {DIST['ranks']} (nel="
+                        f"{DIST['nel']}, local slots)", op0.local, 31)
+
+    a = [r["mode_a"] for r in res]
+    for key in ("poisson", "motor", "shell"):
+        for r in a[1:]:
+            vals = ("J", "g") if key != "motor" else ("loss", "g_dv", "g_iq")
+            for v in vals:
+                if not np.array_equal(np.asarray(r[key][v]),
+                                      np.asarray(a[0][key][v])):
+                    raise AssertionError(f"mode a {key}: {v} differs "
+                                         "between the ranks")
+    p = a[0]["poisson"]
+    check_oracle_values(
+        f"mode a Poisson nel={DIST['poisson_nel']} (cg)", p["J"],
+        torch.as_tensor(p["g"]), jit_ref[0], jit_ref[1],
+        DIST_GATES["value"], DIST_GATES["grad"],
+        ref="the port's unsharded step")
+    m = a[0]["motor"]
+    check_oracle(f"mode a motor refine {DIST['motor_refine']} (dense LU)",
+                 m["loss"], torch.as_tensor(m["g_dv"]), m["g_iq"],
+                 motor_oracle(), DIST_KEYS["motor"], DIST_GATES["value"],
+                 DIST_GATES["grad"])
+    sh = a[0]["shell"]
+    check_oracle_values(
+        f"mode a shell {DIST['shell_shape']} ({sh['n_dofs']} dofs)", sh["J"],
+        torch.as_tensor(sh["g"]), oracle["shell34_J"], oracle["shell34_g"],
+        DIST_GATES["value"], DIST_GATES["grad"])
+    print(f"  mode a seconds (first call, rank 0): Poisson "
+          f"{p['seconds']:.2f}, motor {m['seconds']:.2f}, shell "
+          f"{sh['seconds']:.2f}; rank 0 mode b {res[0]['halo_s']:.1f} s, "
+          f"mode a {res[0]['mode_a_s']:.1f} s")
+    return dict(
+        launches_by_rank=k4, launches=sum(k4), k4_err=max(
+            r["halo"]["k4_max_abs_err"] for r in res), k4_times=t_k4,
+        four_ranks=four, one_rank=single,
+        warm_ms_per_iteration=[r["halo"]["warm"]["ms_per_iteration"]
+                               for r in res],
+        split_ms=h0["split_ms"], pool_s=t_spawn,
+        mode_a_s={k: a[0][k]["seconds"] for k in a[0]})
+
+
+# ---------------------------------------------------------------------------
 # run_scripts: the port's run scripts (femo_tpu_torch/examples/) and the
 # L-BFGS-B driver on the card, each against the JAX package's run of its
 # own script at the same arguments (oracles/examples_oracle.npz, written
@@ -3810,9 +3986,10 @@ def script_w1_lbfgsb(oracle):
 
 
 def script_motor_snopt(oracle):
-    """run_motor_opt --refine 1 --driver snopt --maxiter 2: SNOPT warns
-    (no binding) and runs SLSQP; the final loss_sum (1e-7) and design
-    (1e-6) against the JAX run."""
+    """run_motor_opt --refine 1 --driver snopt --maxiter 1: SNOPT warns
+    (no binding) and runs SLSQP; its whole path (evaluations, every
+    objective 1e-7, the first gradient, the final design 1e-6) and the
+    final loss_sum (1e-7) against the JAX run."""
     key = "motor_snopt_r1"
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
@@ -3826,15 +4003,11 @@ def script_motor_snopt(oracle):
           f"loss_sum {res['initial_loss_sum']!r} -> {res['loss_sum']!r}, "
           f"shape_dv {list(res['shape_dv'])}, iq {res['iq']!r}; launches "
           f"{nonzero(launches)}")
-    print(f"  vs JAX: first two evaluations max rel {errs['f_first']:.3e} "
-          f"(bar 1e-7), first gradient rel {errs['g0']:.3e} (bar 1e-6), "
-          f"loss_sum at the JAX run's final design rel "
-          f"{errs['at_jax_design']:.3e} (bar 1e-7); the paths part at the "
-          f"second step (example_parity.FIRST_STEP_ONLY): evaluations "
-          f"{errs['path_nfev']}, last {errs['path_f_last']} (rel "
-          f"{errs['path_f_last_rel']:.3e}), final x port "
-          f"{calls[0]['x'].tolist()}, JAX {oracle[key + '_x'].tolist()} "
-          f"(rel {errs['path_x']:.3e})")
+    print(f"  vs JAX: {errs['nfev']} evaluations (equal), every objective "
+          f"max rel {errs['f']:.3e} (bar 1e-7), first gradient rel "
+          f"{errs['g0']:.3e} (bar 1e-6), final x rel {errs['x']:.3e} (bar "
+          f"1e-6), loss_sum rel {errs['loss_sum']:.3e} (bar 1e-7), shape_dv "
+          f"{errs['shape_dv']:.3e}, iq {errs['iq']:.3e} (bars 1e-6)")
     return dict(launches=launches, seconds=t, errors=errs)
 
 
@@ -3894,12 +4067,142 @@ def timed_phase(name, seconds, fn, *args):
     return out
 
 
-def main():
+# Phases run beside the main sequence, each group in a process of its own
+# started right after the build (`python3 chip_smoke.py --side NAME OUT`):
+# the two FSI groups are the longest and share nothing with the rest, so
+# running them beside it keeps the whole script inside its time limit
+# with no path dropped.  The main sequence waits for them before the
+# distributed phase, whose gloo collectives would feel the load.  Times
+# taken while groups run beside each other share the card and the host
+# cores with them (PERF.md §6).
+SIDE_THREADS = "3"  # intra-op and BLAS threads of each side process
+SIDE_LIMIT = 1000.0  # seconds from their start to the end of the last
+
+
+def side_fsi():
+    """Phases 23 and 24 (fsi, fsi_small)."""
+    seconds, err = {}, {"K1": 0.0, "K2": 0.0}
+    fsi, t_fsi, t_fm, k4_err, t_fsi32 = timed_phase(
+        "fsi", seconds, phase_fsi, err)
+    fsi_small = timed_phase("fsi_small", seconds, phase_fsi_small)
+    print("fsi summary: " + json.dumps(dict(fsi, small=fsi_small)))
+    return dict(seconds=seconds, err=err, fsi=fsi, fsi_small=fsi_small,
+                t_fsi=t_fsi, t_fm=t_fm, k4_err=k4_err, t_fsi32=t_fsi32)
+
+
+def side_fsi_dynamic():
+    """Phase 25 (fsi_dynamic)."""
+    seconds, err = {}, {"K1": 0.0, "K2": 0.0}
+    dyn, t_dyn, t_dyn_fm, k4_err, t_dyn32 = timed_phase(
+        "fsi_dynamic", seconds, phase_fsi_dynamic, err)
+    print("fsi dynamic summary: " + json.dumps(dyn))
+    return dict(seconds=seconds, err=err, dyn=dyn, t_dyn=t_dyn,
+                t_dyn_fm=t_dyn_fm, k4_err=k4_err, t_dyn32=t_dyn32)
+
+
+SIDES = {"fsi": side_fsi, "fsi_dynamic": side_fsi_dynamic}
+
+
+def side_main(name, out):
+    """A side process: load the kernels the main process built, run the
+    group `name` and write what it returns to `out` as JSON.  Any failure
+    raises, and the process exits non-zero."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    torch.set_num_threads(int(SIDE_THREADS))
+    femo_tpu_torch.set_precision("float64")
+    for m in (native, bt_sweeps, spmv):
+        m.get_lib()
+    res = SIDES[name]()
+    with open(out, "w") as fh:
+        json.dump(res, fh)
+
+
+class Sides:
+    """The side processes: started together, their output sent to files
+    in a fresh temporary directory; `join` waits for them (within
+    `limit` seconds of the start), prints each one's output and returns
+    their results, raising if one failed or ran out of time; on leaving
+    the block every one still running is killed and its output
+    printed."""
+
+    def __init__(self, limit):
+        self.limit = limit
+
+    def __enter__(self):
+        self.dir = tempfile.TemporaryDirectory()
+        env = dict(os.environ, OMP_NUM_THREADS=SIDE_THREADS,
+                   MKL_NUM_THREADS=SIDE_THREADS,
+                   OPENBLAS_NUM_THREADS=SIDE_THREADS)
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for name in SIDES:
+            log = open(os.path.join(self.dir.name, f"{name}.log"), "w")
+            out = os.path.join(self.dir.name, f"{name}.json")
+            self.procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--side", name,
+                 out], stdout=log, stderr=subprocess.STDOUT, env=env), log,
+                out)
+        print(f"started beside the main sequence: {', '.join(SIDES)}")
+        return self
+
+    def join(self):
+        results, failed = {}, []
+        for name, (proc, _, out) in list(self.procs.items()):
+            left = self.limit - (time.perf_counter() - self.t0)
+            try:
+                rc = proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                rc = None
+            self.report(name)
+            if rc is None:
+                failed.append(f"{name} (out of time)")
+            elif rc != 0:
+                failed.append(f"{name} (exit {rc})")
+            else:
+                with open(out) as fh:
+                    results[name] = json.load(fh)
+        if failed:
+            raise RuntimeError(f"side processes failed: {failed}")
+        return results
+
+    def report(self, name):
+        """Kill side `name` if it still runs, print its output and forget
+        it."""
+        proc, log, _ = self.procs.pop(name)
+        state = f"exit {proc.poll()}"
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+            state = "killed"
+        log.close()
+        with open(log.name) as fh:
+            text = fh.read()
+        print(f"--- side {name}: {state}, "
+              f"{time.perf_counter() - self.t0:.1f} s after the start")
+        print(text, end="" if text.endswith("\n") else "\n")
+        print(f"--- end of side {name}")
+
+    def __exit__(self, *exc):
+        for name in list(self.procs):
+            self.report(name)
+        self.dir.cleanup()
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--side"]:
+        return side_main(*argv[1:])
     t_start = time.perf_counter()
     seconds = {}
     femo_tpu_torch.set_precision("float64")
     card = timed_phase("device", seconds, phase_device)
     timed_phase("build", seconds, phase_build)
+    with Sides(SIDE_LIMIT) as sides:
+        return main_sequence(t_start, seconds, card, sides)
+
+
+def main_sequence(t_start, seconds, card, sides):
     # the run scripts need only the build
     scripts = timed_phase("run_scripts", seconds, phase_run_scripts)
     print("run scripts summary: " + json.dumps(scripts))
@@ -3944,6 +4247,7 @@ def main():
                            ("beam", phase_beam, ())):
         slice_c[name] = timed_phase(name, seconds, fn, *args)
     t_weak = slice_c["w1_weak"].pop("sweeps")
+    jit_ref = slice_c["jit_step"].pop("ref")
     print("slice C summary: " + json.dumps(slice_c))
     shell, t_shell = timed_phase("shell", seconds, phase_shell, err)
     modal = timed_phase("shell_modal", seconds, phase_shell_modal)
@@ -3954,15 +4258,23 @@ def main():
         paths[f"shell_{key}"] = shell[key]["launches"]
     paths["shell_modal"] = modal["launches"]
     paths["shell_module"] = module["launches"]
-    fsi, t_fsi, t_fm, k4_fsi_err, t_fsi32 = timed_phase(
-        "fsi", seconds, phase_fsi, err)
-    fsi_small = timed_phase("fsi_small", seconds, phase_fsi_small)
-    print("fsi summary: " + json.dumps(dict(fsi, small=fsi_small)))
-    dyn, t_dyn, t_dyn_fm, k4_dyn_err, t_dyn32 = timed_phase(
-        "fsi_dynamic", seconds, phase_fsi_dynamic, err)
-    print("fsi dynamic summary: " + json.dumps(dyn))
     facets = timed_phase("facets_3d", seconds, phase_facets_3d)
     print("3D facets summary: " + json.dumps(facets))
+    side = timed_phase("sides", seconds, sides.join)
+    for r in side.values():
+        seconds.update(r["seconds"])
+        for k in ("K1", "K2"):
+            err[k] = max(err[k], r["err"][k])
+    s_fsi, s_dyn = side["fsi"], side["fsi_dynamic"]
+    fsi, fsi_small, dyn = s_fsi["fsi"], s_fsi["fsi_small"], s_dyn["dyn"]
+    t_fsi, t_fm, k4_fsi_err, t_fsi32 = (
+        s_fsi[k] for k in ("t_fsi", "t_fm", "k4_err", "t_fsi32"))
+    t_dyn, t_dyn_fm, k4_dyn_err, t_dyn32 = (
+        s_dyn[k] for k in ("t_dyn", "t_dyn_fm", "k4_err", "t_dyn32"))
+    # last, alone: the ranks' gloo collectives are host-bound
+    dist = timed_phase("distributed", seconds, phase_distributed, jit_ref)
+    print("distributed summary: " + json.dumps(
+        {k: v for k, v in dist.items() if k != "k4_times"}))
     fsi_paths = {"fsi_anchor": fsi["launches"],
                  "fsi_anchor_f64": fsi["anchor_f64"]["launches"],
                  "fsi_anchor_cr": fsi["anchor_cr"]["launches"],
@@ -3995,6 +4307,7 @@ def main():
         err_spmv[k] = max([err_spmv[k], k4_fsi_err[k], k4_dyn_err[k]]
                           + [slice_c[p]["err"][k] for p in
                              ("w1_weak", "w2", "topopt")])
+    err_spmv["K4"] = max(err_spmv["K4"], dist["k4_err"])
     print("motor summary: " + json.dumps({
         "refine4_cr": r4cr,
         "refine4_refactor3": r4b, "refine1": r1b, "lu_basis": lb,
@@ -4036,8 +4349,12 @@ def main():
     for row, k in ((rows[3], "K4"), (rows[4], "K4T")):
         row["launches_by_path"].update(
             {p: n[k] for p, n in script_paths.items() if n[k]})
+    # K4 in each rank of the distributed halo CG: the launches of each
+    # rank's cold CG, counted from 0 just before it in that rank
+    rows[3]["launches_by_path"]["distributed_halo_cg"] = dist["launches"]
+    rows[3]["distributed_launches_by_rank"] = dist["launches_by_rank"]
     k4_shapes = t_spmv["K4_shapes"] + [slice_c["topopt"]["k4_times"], t_fm,
-                                       t_dyn_fm]
+                                       t_dyn_fm, dist["k4_times"]]
     for row, k in ((rows[3], "K4"), (rows[4], "K4T")):
         row.update(design=t_spmv[k]["design"],
                    burst_ms=t_spmv[k]["burst_ms"], share=t_spmv[k]["share"],
@@ -4053,7 +4370,8 @@ def main():
         dict({k: v for k, v in r.items() if k != "bound"},
              bound_ms=r["bound"][0], bound_by=r["bound"][1])
         for r in t_spmv["K5_bands"]]
-    print(f"phase seconds: {json.dumps(seconds)}; "
+    print(f"phase seconds (fsi, fsi_small and fsi_dynamic beside the main "
+          f"sequence, from the build to `sides`): {json.dumps(seconds)}; "
           f"{time.perf_counter() - t_start:.1f} s in all")
     print(card)  # again near the end, where a cut output still shows it
     print(json.dumps({"kernels": rows}))

@@ -366,17 +366,21 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
     (one (dx, dy) per magnet-ring interface node); dv0 is the same
     boundary displacement in both.  mesh=None uses the procedural polar
     mesh; an imported Mesh with the motor tag semantics runs the
-    import-first path.  device_mesh (sharded assembly) is not ported.
-    `device` defaults to `config.device` (the card).
+    import-first path.  device_mesh: a `parallel.sharding.RankMesh`; the
+    residual, Jacobian and loss assembly then run with the cells sharded
+    over its ranks (mode a) and both Newton solves as dense LU, run
+    replicated; `factorization` is ignored, as in the JAX package.
+    `device` defaults to the rank's with a device_mesh, else to
+    `config.device` (the card).
     """
     if refactor_every != 1 and (factorization != "block_thomas"
                                 or device_mesh is not None):
         raise ValueError("refactor_every > 1 requires "
                          "factorization='block_thomas' without device_mesh")
-    if device_mesh is not None:
-        raise ValueError("device_mesh (sharded assembly) is not ported")
     if design_space not in ("edge_deltas", "basis"):
         raise ValueError(f"unknown design_space {design_space!r}")
+    if device is None and device_mesh is not None:
+        device = device_mesh.device
     device = get_device(device)
     dt = config.dtype
     if mesh is None:
@@ -430,12 +434,33 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
               scale=em_scale)
     bt_info, jac_info = {}, {}
 
+    def eddy_fn(vals):  # looked up at each call, as the profiler wraps it
+        return eddy_cf.scalar(vals)
+
+    def hyst_fn(vals):
+        return hyst_cf.scalar(vals)
+
+    if device_mesh is not None:
+        from ...parallel.sharding import (
+            sharded_matrix_dense_fn, sharded_scalar_fn, sharded_vector_fn)
+
+        for c in (mm, em):
+            c["vector"] = sharded_vector_fn(c["cf"], device_mesh)
+            c["dense"] = sharded_matrix_dense_fn(c["cf"], device_mesh,
+                                                 c["wrt"])
+        eddy_fn = sharded_scalar_fn(eddy_cf, device_mesh)
+        hyst_fn = sharded_scalar_fn(hyst_cf, device_mesh)
+
     def implicit(name, c):
         def residual(u, p):
-            return c["cf"].vector(c["vals"](u, p))
+            return c.get("vector", c["cf"].vector)(c["vals"](u, p))
 
         counts = dict(newton_iters=c["newton_iters"],
                       load_steps=c["load_steps"], scale_inputs=c["scale"])
+        if device_mesh is not None:
+            return implicit_solve_dense(
+                residual, lambda u, p: c["dense"](c["vals"](u, p)),
+                c["free"], c["bv"], **counts)
         if factorization != "block_thomas":
             return implicit_solve_dense(
                 residual, lambda u, p: c["cf"].matrix(
@@ -466,8 +491,8 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
         Ht, Jt = source_tables(iq, torch.zeros((), dtype=dt, device=device))
         az = solve_em({"uhat": uh, "Htable": Ht, "Jtable": Jt},
                       torch.zeros(Vem.n_dofs, dtype=dt, device=device))
-        be = eddy_cf.scalar({"A_z": az, "uhat": uh})
-        bhy = hyst_cf.scalar({"A_z": az, "uhat": uh})
+        be = eddy_fn({"A_z": az, "uhat": uh})
+        bhy = hyst_fn({"A_z": az, "uhat": uh})
         eddy, hyst = power_losses(be, bhy, frequency=frequency)
         return eddy + hyst
 

@@ -108,15 +108,16 @@ def build_jit_opt_step(nel: int = 64, device_mesh=None, solver: str = "cg",
 
     solver "cg": matrix-free Newton-Krylov (at most 3 Newton iterations,
     CG to 1e-12 in f64) with the CG transpose adjoint; "dense": one
-    dense-LU Newton step.  device_mesh (sharded assembly) is not ported:
-    distribution is a later slice.  Returns (step, f0), step(f) ->
+    dense-LU Newton step.  device_mesh: a `parallel.sharding.RankMesh`;
+    the residual and the objective are then assembled with the cells
+    sharded over its ranks (mode a), the solve runs replicated, and
+    `device` defaults to the rank's.  Returns (step, f0), step(f) ->
     (J, dJ/df) as tensors.
     """
-    if device_mesh is not None:
-        raise NotImplementedError(
-            "device_mesh (sharded assembly) is not ported")
     if solver not in ("cg", "dense"):
         raise ValueError(f"solver={solver!r}: 'cg' or 'dense'")
+    if device is None and device_mesh is not None:
+        device = device_mesh.device
     device = get_device(device)
     mesh = create_unit_square_mesh(nel)
     V = FunctionSpace(mesh, ("CG", 1), device=device)
@@ -131,8 +132,20 @@ def build_jit_opt_step(nel: int = 64, device_mesh=None, solver: str = "cg",
     bc = DirichletBC(V, 0.0, where=on_boundary)
     free, bvals = bc_arrays([bc], V.n_dofs, device)
 
+    if device_mesh is not None:
+        from ..parallel.sharding import sharded_scalar_fn, sharded_vector_fn
+
+        rvec = sharded_vector_fn(rcf, device_mesh)
+        jscalar = sharded_scalar_fn(jcf, device_mesh)
+    else:
+        def rvec(vals):  # looked up at each call, as the profiler wraps it
+            return rcf.vector(vals)
+
+        def jscalar(vals):
+            return jcf.scalar(vals)
+
     def rfn(uu, p):
-        return rcf.vector({"u": uu, "f": p["f"]})
+        return rvec({"u": uu, "f": p["f"]})
 
     f64 = config.dtype == torch.float64
     if solver == "dense":
@@ -154,7 +167,7 @@ def build_jit_opt_step(nel: int = 64, device_mesh=None, solver: str = "cg",
         with torch.enable_grad():
             uu = solve({"f": farr}, torch.zeros(V.n_dofs, dtype=config.dtype,
                                                 device=device))
-            J = jcf.scalar({"u": uu, "f": farr, "u_ex": u_ex.array})
+            J = jscalar({"u": uu, "f": farr, "u_ex": u_ex.array})
             (g,) = torch.autograd.grad(J, farr)
         return J.detach(), g
 

@@ -15,9 +15,9 @@ Outputs: compliance, mass, elastic energy, von Mises p-norm aggregate.
 
 Every block-Thomas solve of the shell (the compliance step, the
 composite op's "jit_bt" mode, the Lanczos modes) runs the sweeps K1/K2 on
-CUDA tensors (ops/bt_sweeps.py).  `build_shell_sharded_step` (the
-distributed step) is not ported here: it belongs to the distribution
-slice.
+CUDA tensors (ops/bt_sweeps.py).  `build_shell_sharded_step` is the
+cells-sharded step (mode a, parallel/sharding.py) with a replicated dense
+solve.
 """
 
 from __future__ import annotations
@@ -543,3 +543,90 @@ def build_shell_jit_step(n_shell=(16, 24), span=4.0, chord=1.0,
                           n_dofs=n_dofs, n_cells=shell.mesh.n_cells,
                           programs=dict(step=step, solve=forward),
                           consts={"force": force}, bt_tpl=tpl)
+
+
+def build_shell_sharded_step(n_shell=(4, 6), span=2.0, chord=1.0,
+                             E=7e10, nu=0.3, thickness=0.01,
+                             pressure=2.0e3, device_mesh=None, device=None):
+    """The cells-sharded CG2CG1 shell compliance step: thickness ->
+    (compliance, d compliance / d thickness), the W6 counterpart of the
+    sharded motor step.
+
+    With device_mesh (a `parallel.sharding.RankMesh`) the residual,
+    Jacobian and compliance assembly run with the entities sharded over
+    its ranks and one all-reduce each (mode a); the dense composite (u,
+    theta) solve runs replicated on every rank and the IFT adjoint reuses
+    its LU factors.  Without one, the same step on one device.  Small
+    shapes only (a dense solve): the at-scale step is
+    `build_shell_jit_step`.  `device` defaults to the rank's with a
+    device_mesh, else to `config.device` (the card).  Returns (step, t0,
+    info), info with mesh, shell and n_dofs.
+    """
+    from ..graph.implicit import implicit_solve_dense
+
+    if device is None and device_mesh is not None:
+        device = device_mesh.device
+    shell, bcs = plate_shell(n_shell, span, chord, E, nu, thickness, device)
+    dev = shell.Vu.device
+    state = shell.make_state(bcs)
+    free, bv = state.free, state.bc_values
+    off_th = shell.Vu.n_dofs
+    n_dofs = state.n_dofs
+    ucf = compile_form(shell.res_u)
+    tcf = compile_form(shell.res_th)
+    ccf = compile_form(shell.compliance_form)
+
+    farr = np.zeros(shell.Vf.n_dofs)
+    farr[2::3] = pressure
+    force = torch.as_tensor(farr, dtype=config.dtype, device=dev)
+    cforms = {"u": ucf, "th": tcf}
+    if device_mesh is None:
+        # looked up at each call, as the profiler wraps them
+        rfn = {k: (lambda vals, cf=cf: cf.vector(vals))
+               for k, cf in cforms.items()}
+
+        def c_fn(vals):
+            return ccf.scalar(vals)
+
+        jfn = {(k, wrt): (lambda vals, cf=cf, wrt=wrt: cf.matrix(
+            vals, wrt).to_dense())
+            for k, cf in cforms.items() for wrt in ("u", "theta")}
+    else:
+        from ..parallel.sharding import (
+            sharded_matrix_dense_fn, sharded_scalar_fn, sharded_vector_fn)
+
+        rfn = {k: sharded_vector_fn(cf, device_mesh)
+               for k, cf in cforms.items()}
+        c_fn = sharded_scalar_fn(ccf, device_mesh)
+        jfn = {(k, wrt): sharded_matrix_dense_fn(cf, device_mesh, wrt)
+               for k, cf in cforms.items() for wrt in ("u", "theta")}
+
+    def values(x, p):
+        return {"u": x[:off_th], "theta": x[off_th:],
+                "thickness": p["thickness"], "force": force}
+
+    def residual(x, p):
+        vals = values(x, p)
+        return torch.cat([rfn["u"](vals), rfn["th"](vals)])
+
+    def jac_dense(x, p):
+        vals = values(x, p)
+        return torch.cat([torch.cat([jfn[(k, "u")](vals),
+                                     jfn[(k, "theta")](vals)], dim=1)
+                          for k in ("u", "th")])
+
+    solve = implicit_solve_dense(residual, jac_dense, free, bv,
+                                 newton_iters=1)
+
+    def step(tarr):
+        t = tarr.detach().requires_grad_(True)
+        with torch.enable_grad():
+            x = solve({"thickness": t},
+                      torch.zeros(n_dofs, dtype=config.dtype, device=dev))
+            J = c_fn({"u": x[:off_th], "force": force})
+            (g,) = torch.autograd.grad(J, t)
+        return J.detach(), g
+
+    t0 = torch.full((shell.Vt.n_dofs,), thickness, dtype=config.dtype,
+                    device=dev)
+    return step, t0, dict(mesh=shell.mesh, shell=shell, n_dofs=n_dofs)

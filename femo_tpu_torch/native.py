@@ -1,13 +1,14 @@
-"""ctypes bindings to the C++ host helpers (RCM order, CSR pattern,
-block-tridiagonal destination map).
+"""ctypes bindings to the C++ host helpers (RCB partition, RCM order, CSR
+pattern, block-tridiagonal destination map).
 
 Builds femo_tpu_torch/csrc/femo_native.cpp, a byte-for-byte copy of the
 JAX package's femo_tpu/native/femo_native.cpp (a test keeps the two
 alike), with `g++ -O3 -shared -fPIC` into the port's build directory at
-first use, and binds the helpers the block-tridiagonal template needs.
-The shared source is what makes the RCM order, and with it the whole
-block layout, identical in both packages, so there is deliberately no
-numpy fallback: a failed build raises.
+first use, and binds the helpers the block-tridiagonal template and the
+distributed layouts (`parallel/`) need.  The shared source is what makes
+the RCM order, and with it the whole block layout, and the RCB partition,
+and with it every rank's cells and dofs, identical in both packages, so
+there is deliberately no numpy fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ def get_lib():
     c_i32p = ctypes.POINTER(ctypes.c_int32)
     c_i64p = ctypes.POINTER(ctypes.c_int64)
     c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.rcb_partition.argtypes = [ctypes.POINTER(ctypes.c_double),
+                                  ctypes.c_int64, ctypes.c_int,
+                                  ctypes.c_int32, c_i32p]
+    lib.rcb_partition.restype = None
     lib.rcm_order.argtypes = [c_i64p, c_i32p, ctypes.c_int64, c_i32p]
     lib.rcm_order.restype = None
     lib.bt_dest_map.argtypes = [c_i64p, c_i64p, ctypes.c_int64,
@@ -84,6 +89,24 @@ def get_lib():
 
 def _ptr(a, ct):
     return a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def rcb_partition(centroids: np.ndarray, nparts: int) -> np.ndarray:
+    """Recursive coordinate bisection of n points (n, dim) into nparts
+    balanced spatial blocks: int32 (n,) part ids in [0, nparts).  Each
+    split halves the points along the widest axis of the box they span
+    (`std::nth_element`), so nparts should be a power of two."""
+    lib = get_lib()
+    centroids = np.ascontiguousarray(centroids, np.float64)
+    if centroids.ndim != 2:
+        raise ValueError(f"centroids must be (n, dim), got {centroids.shape}")
+    if int(nparts) < 1:
+        raise ValueError(f"nparts={nparts}: at least 1")
+    n, dim = centroids.shape
+    out = np.empty(n, np.int32)
+    lib.rcb_partition(_ptr(centroids, ctypes.c_double), n, dim,
+                      int(nparts), _ptr(out, ctypes.c_int32))
+    return out
 
 
 def rcm_order(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:

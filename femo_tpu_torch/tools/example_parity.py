@@ -12,19 +12,17 @@ Bars: where the script optimizes, the evaluation count is equal, every
 objective value (as the optimizer sees it) within 1e-8 and the final
 design within 1e-6, relative in the 2-norm; the values the script returns
 are held at 1e-8 (scalars) and 1e-6 (vectors, the first gradient); the
-eager motor's loss and evaluations at 1e-7.  Three scripts cannot be
-held so, in either package, and are held to what their runs do fix:
+eager motor's loss and evaluations at 1e-7.  The eager motor runs one
+SLSQP iteration (motor_snopt_r1): after it both shape variables sit near
+their bound, and a second step frees one of them by ~1e-7, which one
+following from differences far below the bars.  Two scripts cannot be
+held whole, in either package, and are held to what their runs do fix:
 
 * topo: SLSQP's first step puts most densities on their bounds, where a
   last-bit difference in the volume constraint (active at the start)
   moves the step; from there on no two implementations follow one path.
   Held: the first evaluation (1e-8), its gradient (1e-6), and the port's
   compliance at the JAX run's final design against the JAX run's (1e-8).
-* motor_snopt_r1: after SLSQP's first step both shape variables sit on
-  their bound, and the second step frees one of them by ~1e-7: which one
-  follows from differences far below the bars.  Held: the first two
-  evaluations (1e-7), the first gradient (1e-6), and the port's loss_sum
-  at the JAX run's final design against the JAX run's (1e-7).
 * roof: the script solves the shell with one unpolished block-Thomas
   step, which is off the system's exact solution by 6e-5 to 2e-4 in both
   packages.  Held, as tools/shell_parity.py does for the shell: each
@@ -84,7 +82,7 @@ CHECKS = {
 BARS = {"s": 1e-8, "s7": 1e-7, "v": 1e-6}
 # scripts whose optimizer path is held only over its first evaluations
 # (how many), then at the JAX run's final design (`at_jax_design`)
-FIRST_STEP_ONLY = {"topo": 1, "motor_snopt_r1": 2}
+FIRST_STEP_ONLY = {"topo": 1}
 # check_optimizer's bars where they differ from its defaults
 OPT_BARS = {"motor_snopt_r1": {"f": 1e-7}}
 
@@ -174,31 +172,20 @@ def check_first_step(oracle, key, c, bars) -> dict:
 
 def at_jax_design(oracle, key) -> float:
     """The port's model at the JAX run's final design: its objective
-    output relative to the JAX run's there (topo: compliance; the eager
-    motor: loss_sum)."""
+    output relative to the JAX run's there (topo: compliance)."""
     from ..graph.simulator import Simulator
+    from ..models.topopt import build_topopt_model
 
+    if key != "topo":
+        raise ValueError(f"{key}: no model at the JAX run's design")
     a = config(oracle, key)["argv"]
     arg = dict(zip(a[0::2], a[1::2]))
-    x = np.asarray(oracle[f"{key}_x"])
-    if key == "topo":
-        from ..models.topopt import build_topopt_model
-
-        model, fea, _ = build_topopt_model(int(arg["--nelx"]),
-                                           int(arg["--nely"]))
-        fea.solve_mode = "jit_dense"
-        sim = Simulator(model)
-        sim["density_unfiltered"] = x
-        out = "compliance"
-    else:
-        from ..models.motor.model import build_motor_model
-
-        model, _ = build_motor_model(refine=float(arg["--refine"]),
-                                     em_load_steps=3)
-        sim = Simulator(model)
-        sim["shape_dv"] = x[:2]
-        sim["iq"] = x[2]
-        out = "loss_sum"
+    model, fea, _ = build_topopt_model(int(arg["--nelx"]),
+                                       int(arg["--nely"]))
+    fea.solve_mode = "jit_dense"
+    sim = Simulator(model)
+    sim["density_unfiltered"] = np.asarray(oracle[f"{key}_x"])
+    out = "compliance"
     got = float(sim.run()[out])
     want = float(oracle[f"{key}_out_{out}"])
     return abs(got - want) / abs(want)

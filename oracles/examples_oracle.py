@@ -28,7 +28,7 @@ JSON) and `<key>_seconds`.
 * motor_jit_r05: `--jit --refine 0.5 --maxiter 2`, dense LU as the script
   picks on the CPU (the port's CPU test).
 * motor_snopt_r1: `run_motor_opt.py --refine 1 --driver snopt --maxiter
-  2`: no SNOPT binding, so SNOPT warns and runs SLSQP.
+  1`: no SNOPT binding, so SNOPT warns and runs SLSQP.
 * w1_lbfgsb_nel260 / w1_lbfgsb_nel8: W1 (`build_fea`, f = 0.5, objective
   l2_functional with scaler 1e5) through `LBFGSB(maxiter=5)`.
 * motor_record_r05: `build_motor_model(record=True)` (refine 0.5, 2 EM
@@ -75,7 +75,7 @@ SCRIPTS = {
     "motor_jit_r05": ("run_motor_opt", ["--jit", "--refine", "0.5",
                                         "--maxiter", "2"]),
     "motor_snopt_r1": ("run_motor_opt", ["--refine", "1", "--driver",
-                                         "snopt", "--maxiter", "2"]),
+                                         "snopt", "--maxiter", "1"]),
     "poisson": ("run_poisson_opt", ["--nel", "8", "--maxiter", "10"]),
     "poisson32": ("run_poisson_opt", ["--nel", "32", "--maxiter", "5"]),
     "nonlinear_poisson": ("run_nonlinear_poisson_opt",

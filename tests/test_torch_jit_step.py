@@ -61,7 +61,7 @@ def test_entry_matches_jax():
     jfn, jargs = __graft_entry__.entry()
     assert args[0].numel() == jargs[0].size == 2 * 32 * 32
     _check(fn(*args), jfn(*jargs), "dense")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="device_mesh"):
         build_jit_opt_step(8, device_mesh=object(), device="cpu")
 
 

@@ -195,7 +195,8 @@ def test_unported_design_space_raises(design_space):
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="device_mesh"):
+    # sharded assembly takes a RankMesh (tests/test_torch_sharding.py)
+    with pytest.raises(TypeError, match="device_mesh"):
         build_motor_jit_step(refine=0.5, device_mesh=object(),
                              device="cpu")
     # the JAX package's guard: reuse needs block Thomas

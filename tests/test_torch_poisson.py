@@ -266,9 +266,9 @@ def test_default_device_is_the_card(entry):
 
 
 def test_unported_options_raise():
-    # weak_bc is ported (tests/test_torch_weak_bc.py); sharded assembly is
-    # not
-    with pytest.raises(NotImplementedError, match="device_mesh"):
+    # weak_bc is ported (tests/test_torch_weak_bc.py); sharded assembly
+    # takes a RankMesh (tests/test_torch_sharding.py)
+    with pytest.raises(TypeError, match="device_mesh"):
         build_jit_opt_step(nel=2, device_mesh=object(), device="cpu")
     fea, d = build_fea(nel=2, device="cpu")
     # a field output needs its CG1 test space
