@@ -265,7 +265,24 @@ non-zero without the final line:
    configuration's counts and dense LU against oracles/motor_oracle.npz's
    r1_lu, build_shell_sharded_step(n_shell=(3, 4)) against the oracle
    file; value 1e-8, gradient 1e-6; every rank's values equal bit for
-   bit.  A rank that raises makes the phase raise.
+   bit.  Mode b inside the steps (parallel/halo_step.py): the W6 shell
+   halo step at (24, 400) (19,200 cells, 147,822 dofs; block Jacobi,
+   CG rtol 1e-8, bench_scale.py's run_halo_scale configuration on the
+   plate of shell oracle entry a), value and gradient through the
+   autograd adjoint, against entry a at SHELL_GATES["a"] and the true
+   residual of its forward x at HALO_STEP_RESIDUAL; each rank's K1, K2
+   and K4 set to 0 just before each solve and required to equal
+   iterations + 1; K1/K2 against their plain versions on each rank's
+   local factor and K4 on its 27 x 27 blocks; each rank's layout, block
+   Jacobi (nb, B), fill, factor and matrix-halo times, the split of an
+   iteration, the peak memory; K1/K2 timed at rank 0's (nb, B) and K4 at
+   its blocks.  At (3, 4): the dryrun's two mode-b lines (the shell halo
+   step with block Jacobi beside the unsharded step, the FSI halo step
+   at (3, 4) / (2, 3) with 3 Gauss-Seidel passes), the shell halo step
+   with jacobi and Chebyshev degree 6, each against the JAX package's
+   values (distributed_oracle.npz: shell 1e-8, FSI 1e-7, CG iterations
+   within 15%), their launches against the code's.  A rank that raises
+   makes the phase raise.
 
 Phases 23-25 run beside the main sequence: right after the build two
 side processes start (`chip_smoke.py --side fsi|fsi_dynamic OUT`, the
@@ -280,8 +297,11 @@ shell's and FSI's, W8's and W9's (0 on the cyclic-reduction paths), with
 their f32 times on the f32 factors, K4/K4T on W1, W1 with weak BCs, W2
 and W4, K4T on FSI's and W8's Fm, and the run scripts' paths
 (`launches_by_path`; the distributed halo CG's K4 summed over
-the ranks, and by rank), with K4/K4T's times at W1's, W4's,
-both Fm shapes and a halo rank's local shape),
+the ranks, and by rank; mode b inside the steps' K1, K2 and K4 summed
+and by rank, `distributed_launches_by_rank`), with K1/K2's times at a
+halo step rank's block-Jacobi shape, K4/K4T's times at W1's, W4's,
+both Fm shapes, a halo rank's local shape and a halo step rank's
+27 x 27 blocks),
 and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -3720,7 +3740,7 @@ def phase_facets_3d():
 DIST_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "oracles", "distributed_oracle.npz")
 DIST = dict(ranks=4, nel=260, rtol=1e-8, poisson_nel=260, motor_refine=1,
-            shell_shape=(3, 4))
+            shell_shape=(3, 4), halo_step=distributed_check.HALO_STEP)
 # the oracle entries they are held to: the halo CG's (halo260_*) and the
 # motor's in oracles/motor_oracle.npz
 DIST_KEYS = dict(halo="halo260", motor="r1_lu")
@@ -3732,6 +3752,20 @@ DIST_KEYS = dict(halo="halo260", motor="r1_lu")
 # Mode a: value and gradient (relative L2).
 DIST_GATES = dict(residual=2e-8, dist_factor=10.0, iters=0.03,
                   value=1e-8, grad=1e-6)
+# mode b inside the workload steps (parallel/halo_step.py).  The full-
+# width W6 shell halo step (distributed_check.HALO_STEP: 19,200 cells,
+# 147,822 dofs, block Jacobi, the plate of shell oracle entry a) is held
+# to entry a at SHELL_GATES["a"], and the true relative residual of its
+# forward x (K4's plain version on the whole Jacobian) to
+# HALO_STEP_RESIDUAL, fixed before the first gated run (PERF.md §6).  The
+# steps at (3, 4) against distributed_oracle.npz's shell34_halo_* and
+# fsi34_halo_*: value and gradient at SMALL_STEP_GATES (the JAX dryrun's
+# and tests/test_halo.py's bars), the forward solve's CG iterations
+# within HALO_ITERS of JAX's: rounding alone moves the port's own counts
+# by up to 13.5% (distributed_check.py --iteration-spread).
+HALO_STEP_RESIDUAL = 1e-3
+SMALL_STEP_GATES = dict(shell=1e-8, fsi=1e-7)
+HALO_ITERS = 0.15
 
 
 def constrained_plain(A, free, x):
@@ -3864,14 +3898,215 @@ def phase_distributed(jit_ref):
           f"{p['seconds']:.2f}, motor {m['seconds']:.2f}, shell "
           f"{sh['seconds']:.2f}; rank 0 mode b {res[0]['halo_s']:.1f} s, "
           f"mode a {res[0]['mode_a_s']:.1f} s")
+    step = halo_step_checks([r["halo_step"] for r in res])
+    small = small_steps_checks([r["small_steps"] for r in res], oracle)
+    t_sw, t_k4s = halo_step_times(step)
+    print(f"  seconds (rank 0): mode b {res[0]['halo_s']:.1f}, mode a "
+          f"{res[0]['mode_a_s']:.1f}, shell halo step "
+          f"{res[0]['halo_step_s']:.1f}, steps at (3, 4) "
+          f"{res[0]['small_steps_s']:.1f}")
     return dict(
         launches_by_rank=k4, launches=sum(k4), k4_err=max(
-            r["halo"]["k4_max_abs_err"] for r in res), k4_times=t_k4,
-        four_ranks=four, one_rank=single,
+            [r["halo"]["k4_max_abs_err"] for r in res] + [step["K4_err"]]),
+        k4_times=t_k4, four_ranks=four, one_rank=single,
         warm_ms_per_iteration=[r["halo"]["warm"]["ms_per_iteration"]
                                for r in res],
         split_ms=h0["split_ms"], pool_s=t_spawn,
-        mode_a_s={k: a[0][k]["seconds"] for k in a[0]})
+        mode_a_s={k: a[0][k]["seconds"] for k in a[0]},
+        halo_step={k: v for k, v in step.items() if k != "launches"},
+        small_steps=small, sweep_times=t_sw, k4_step_times=t_k4s,
+        step_launches=dict(step["launches"], **small["launches"]),
+        sweep_err={k: step[f"{k}_err"] for k in ("K1", "K2")},
+        seconds={k: res[0][f"{k}_s"] for k in (
+            "halo", "mode_a", "halo_step", "small_steps")})
+
+
+def ms_per_it(solve):
+    return solve["seconds"] / max(solve["iterations"], 1) * 1e3
+
+
+def halo_step_checks(hs):
+    """The full-width shell halo step, every rank's results (hs, rank 0
+    first): the counts of each solve against the code's (K1, K2 and K4
+    each iterations + 1: one preconditioner application and one matvec
+    per iteration and one each for the initial residual), K1/K2 against
+    their plain versions on each rank's factor (the step residuals at
+    SWEEP_TOL, the kernel-vs-plain difference at SWEEP_TOL or 10x the
+    plain solve's spread under reordered sums, as on the shell phase's
+    factor), K4 against its plain version on each rank's 27 x 27 blocks
+    (SPMV_TOL of the largest entry), the same values on every rank;
+    compliance, energy estimate and gradient against shell oracle entry
+    a at SHELL_GATES["a"], the true residual at HALO_STEP_RESIDUAL."""
+    h0, cfg = hs[0], DIST["halo_step"]
+    if (list(cfg["n_shell"]) != SHELL_FULL["n_shell"]
+            or cfg["span"] != 4.0):
+        raise AssertionError(f"the halo step {cfg} is not the plate of "
+                             "shell oracle entry a")
+    print(f"  shell halo step {tuple(cfg['n_shell'])} ({h0['n_cells']} "
+          f"cells, {h0['n_dofs']} dofs, {h0['block'][0]} x "
+          f"{h0['block'][0]} element blocks), {cfg['precond']}, CG rtol "
+          f"{cfg['cg_rtol']:.0e}: layout L/G/S {h0['L']}/{h0['G']}/"
+          f"{h0['S']}; build {h0['build_s']:.2f} s, step {h0['step_s']:.2f}"
+          " s")
+    launches = {k: [] for k in ("K1", "K2", "K4")}
+    err = {k: 0.0 for k in launches}
+    tol = SWEEP_TOL[torch.float64]
+    for h in hs:
+        sw = h["sweeps"]
+        bar = max(tol, 10 * sw["spread"])
+        k4_tol = SPMV_TOL[torch.float64] * h["k4_max_abs"]
+        print(f"  rank {h['rank']}: {h['n_owned']} owned, {h['n_ghosts']} "
+              f"ghosts, {h['n_elements']} elements; block Jacobi nb="
+              f"{h['nb']} B={h['B']} (RCM bandwidth {h['bw']}), matrix "
+              f"halo {h['n_import']} entries in, {h['n_export']} out; "
+              f"assembly {h['assemble_s']:.3f} s, matrix halo "
+              f"{h['matrix_halo_s']:.3f} s, fill {h['fill_s']:.3f} s, "
+              f"factor {h['factor_s']:.3f} s; solves "
+              + ", ".join(f"{s['iterations']} iterations {s['seconds']:.2f} "
+                          f"s ({ms_per_it(s):.2f} ms an iteration) K1/K2/K4 "
+                          f"{s['K1']}/{s['K2']}/{s['K4']}"
+                          for s in h["solves"])
+              + "; split (ms a call): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in h["split_ms"].items())
+              + f"; peak {h['peak_gib']:.2f} GiB")
+        print(f"    K1/K2 vs plain on the rank's factor: rel L2 "
+              f"{sw['K1_rel']:.3e} / {sw['K2_rel']:.3e} (bar {bar:.1e}, "
+              f"10x the plain solve's spread {sw['spread']:.3e} or "
+              f"{tol:.0e}); step residuals {sw['step_residuals'][0]:.3e} / "
+              f"{sw['step_residuals'][1]:.3e} (tol {tol:.0e}); K4 vs plain "
+              f"max abs {h['k4_max_abs_err']:.3e} (tol {k4_tol:.1e})")
+        for s in h["solves"]:
+            want = s["iterations"] + 1
+            if not (s["K1"] == s["K2"] == s["K4"] == want > 1):
+                raise AssertionError(f"rank {h['rank']}: a solve launched "
+                                     f"K1/K2/K4 {s['K1']}/{s['K2']}/"
+                                     f"{s['K4']}, the code {want} each")
+        if not (max(sw["K1_rel"], sw["K2_rel"]) <= bar
+                and max(sw["step_residuals"]) <= tol):
+            raise AssertionError(f"rank {h['rank']}: K1/K2 disagree with "
+                                 "their plain versions")
+        if not h["k4_max_abs_err"] <= k4_tol:
+            raise AssertionError(f"rank {h['rank']}: K4 disagrees with its "
+                                 "plain version")
+        expect("halo step iterations on every rank",
+               [s["iterations"] for s in h["solves"]],
+               [s["iterations"] for s in h0["solves"]])
+        if not (h["J"] == h0["J"] and np.array_equal(h["g"], h0["g"])):
+            raise AssertionError("the halo step's value or gradient "
+                                 "differs between the ranks")
+        for k in launches:
+            launches[k].append(sum(s[k] for s in h["solves"]))
+        err["K1"] = max(err["K1"], sw["K1_max_abs_err"])
+        err["K2"] = max(err["K2"], sw["K2_max_abs_err"])
+        err["K4"] = max(err["K4"], h["k4_max_abs_err"])
+    oracle = shell_oracle("a")
+    gate = SHELL_GATES["a"]
+    rE = abs(h0["J_E"] - float(oracle["a_JE"])) / abs(float(oracle["a_JE"]))
+    print(f"  energy estimate J_E {h0['J_E']!r}, JAX {float(oracle['a_JE'])!r}"
+          f", rel {rE:.3e} (tol {gate['JE']:.0e}); true residual of the "
+          f"forward x {h0['true_residual']:.3e} (bar {HALO_STEP_RESIDUAL:.0e};"
+          f" assembled {h0['true_residual_assembled']:.3e})")
+    if not (rE <= gate["JE"] and h0["true_residual"] <= HALO_STEP_RESIDUAL):
+        raise AssertionError("the shell halo step misses its energy "
+                             "estimate or residual bar")
+    check_oracle_values("shell halo step vs shell oracle a", h0["J"],
+                        torch.as_tensor(h0["g"]), oracle["a_J"],
+                        oracle["a_grad"], gate["J"], gate["grad"])
+    return dict(
+        launches=dict(distributed_shell_halo_step=launches),
+        **{f"{k}_err": v for k, v in err.items()},
+        ranks=[{k: v for k, v in h.items() if k not in ("g", "x")}
+               for h in hs])
+
+
+def small_steps_checks(ss, oracle):
+    """The steps at (3, 4), every rank's results (ss, rank 0 first):
+    the dryrun's two lines; the shell halo step with bjacobi (the
+    dryrun's), jacobi and Chebyshev degree 6, and the FSI halo step,
+    against the JAX package's values at SMALL_STEP_GATES, the forward
+    solves' iterations within HALO_ITERS of JAX's; the launches against
+    the code's: K1 = K2 = K4 = the sum of iterations + 1 over the
+    dryrun's solves (all block Jacobi), K4 = iterations + 1 a jacobi
+    solve and (iterations + 1) x 6 a Chebyshev-6 solve (each application
+    5 matvecs), no K1/K2; every rank's values equal."""
+    s0 = ss[0]
+    print("  " + "\n  ".join(s0["lines"]))
+    launches = {p: {k: [] for k in ("K1", "K2", "K4")} for p in (
+        "distributed_dryrun_halo_steps", "distributed_shell34_jacobi",
+        "distributed_shell34_cheby6")}
+    for s in ss:
+        its = [i for core in s["dryrun_iterations"] for i in core]
+        want = sum(i + 1 for i in its)
+        got = s["dryrun_launches"]
+        if got != dict(K1=want, K2=want, K4=want):
+            raise AssertionError(f"dryrun halo steps launched {got}, the "
+                                 f"code {want} each")
+        for k, n in got.items():
+            launches["distributed_dryrun_halo_steps"][k].append(n)
+        for key, per in (("jacobi", 1), ("cheby6", 6)):
+            for sol in s[key]["solves"]:
+                want = dict(K1=0, K2=0, K4=(sol["iterations"] + 1) * per)
+                got = {k: sol[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"{key} solve launched {got}, the "
+                                         f"code {want}")
+            for k, n in launches[f"distributed_shell34_{key}"].items():
+                n.append(sum(sol[k] for sol in s[key]["solves"]))
+        for key in ("shell", "fsi", "jacobi", "cheby6"):
+            if not (s[key]["J"] == s0[key]["J"]
+                    and np.array_equal(s[key]["g"], s0[key]["g"])):
+                raise AssertionError(f"(3, 4) {key}: the ranks differ")
+    iters = {"bjacobi": s0["dryrun_iterations"][0][0],
+             **{k: s0[k]["solves"][0]["iterations"]
+                for k in ("jacobi", "cheby6")}}
+    for key, val, okey, bar in (
+            ("bjacobi", s0["shell"], "shell34_halo_bjacobi", "shell"),
+            ("jacobi", s0["jacobi"], "shell34_halo_jacobi", "shell"),
+            ("cheby6", s0["cheby6"], "shell34_halo_cheby6", "shell"),
+            ("fsi", s0["fsi"], "fsi34_halo", "fsi")):
+        want = "tip" if key == "fsi" else "J"
+        check_oracle_values(f"(3, 4) {key} halo step", val["J"],
+                            torch.as_tensor(val["g"]),
+                            oracle[f"{okey}_{want}"], oracle[f"{okey}_g"],
+                            SMALL_STEP_GATES[bar], SMALL_STEP_GATES[bar])
+        if key in iters:
+            ji = int(oracle[f"{okey}_iters"])
+            print(f"    forward solve {iters[key]} CG iterations, JAX {ji} "
+                  f"(bar +-{HALO_ITERS:.0%})")
+            if not abs(iters[key] - ji) <= HALO_ITERS * ji:
+                raise AssertionError(f"(3, 4) {key}: CG iterations off "
+                                     "JAX's")
+    return dict(launches=launches, iterations=iters,
+                dryrun_s=s0["dryrun_s"],
+                seconds={k: s0[k]["seconds"] for k in ("jacobi", "cheby6")})
+
+
+def halo_step_times(step):
+    """K1/K2 at rank 0's block-Jacobi shape (nb, B), on a synthetic factor
+    of that shape (time_sweeps), and K4 at rank 0's 27 x 27 element
+    blocks (time_element): rank 0's cells of the full-width halo step
+    assembled here, on the otherwise idle card, without a process
+    group."""
+    from femo_tpu_torch.parallel.halo_step import HaloShellCore
+    from femo_tpu_torch.models.shell import plate_shell
+
+    r0 = step["ranks"][0]
+    fac, bb = synthetic(r0["nb"], r0["B"], torch.float64, 41)
+    t_sw = time_sweeps(fac, bb, f"halo step rank 0 block Jacobi (nb="
+                       f"{r0['nb']}, B={r0['B']})")
+    cfg = DIST["halo_step"]
+    shell, bcs = plate_shell(tuple(cfg["n_shell"]), span=cfg["span"],
+                             device=DEVICE)
+    core = HaloShellCore(shell, shell.make_state(bcs), RankMesh(
+        None, 0, DIST["ranks"], torch.device(DEVICE)), cfg["cg_rtol"],
+        cfg["cg_maxiter"], 0, "jacobi")
+    core.op.set_elements(core.assemble(torch.full(
+        (shell.Vt.n_dofs,), 0.01, dtype=torch.float64, device=DEVICE)))
+    expect("rank 0's elements", core.op.n_elements, r0["n_elements"])
+    t_k4 = time_element(f"halo step rank 0 of {DIST['ranks']} "
+                        f"({tuple(cfg['n_shell'])}, 27 x 27 blocks, local "
+                        "slots)", core.op.local, 43)
+    return t_sw, t_k4
 
 
 # ---------------------------------------------------------------------------
@@ -4274,7 +4509,12 @@ def main_sequence(t_start, seconds, card, sides):
     # last, alone: the ranks' gloo collectives are host-bound
     dist = timed_phase("distributed", seconds, phase_distributed, jit_ref)
     print("distributed summary: " + json.dumps(
-        {k: v for k, v in dist.items() if k != "k4_times"}))
+        {k: v for k, v in dist.items()
+         if k not in ("k4_times", "k4_step_times", "sweep_times")}))
+    for k in ("K1", "K2"):
+        err[k] = max(err[k], dist["sweep_err"][k])
+    # mode b inside the steps, launches by rank: path -> kernel -> list
+    step_by_rank = dist["step_launches"]
     fsi_paths = {"fsi_anchor": fsi["launches"],
                  "fsi_anchor_f64": fsi["anchor_f64"]["launches"],
                  "fsi_anchor_cr": fsi["anchor_cr"]["launches"],
@@ -4323,9 +4563,13 @@ def main_sequence(t_start, seconds, card, sides):
                      library_device_ms=None, bound=t[f"{k}_bound"])),
         shapes=[sweep_shape(k, ts)
                 for ts in [t] + t4 + [t_weak] + t_shell
-                + [t_fsi, t_dyn, t_dyn32, t_fsi32]],
+                + [t_fsi, t_dyn, t_dyn32, t_fsi32, dist["sweep_times"]]],
         launches_by_path=dict({p: n[k] for p, n in paths.items()},
-                              w1_weak=slice_c["w1_weak"]["launches"][k]))
+                              w1_weak=slice_c["w1_weak"]["launches"][k],
+                              **{p: sum(v[k]) for p, v in
+                                 step_by_rank.items()}),
+        distributed_launches_by_rank={p: v[k] for p, v in
+                                      step_by_rank.items()})
         for k, name, line in (("K1", "bt_fwd_sweep", 60),
                               ("K2", "bt_bwd_sweep", 76))]
     rows += [kernel_entry(k, name, sp, f"{ps}:{line}", n, err_spmv[k],
@@ -4353,8 +4597,16 @@ def main_sequence(t_start, seconds, card, sides):
     # rank's cold CG, counted from 0 just before it in that rank
     rows[3]["launches_by_path"]["distributed_halo_cg"] = dist["launches"]
     rows[3]["distributed_launches_by_rank"] = dist["launches_by_rank"]
+    # K4 (and K1/K2 above) in each rank of mode b inside the steps: the
+    # full-width shell halo step's two solves, the dryrun's shell and FSI
+    # halo steps, the (3, 4) jacobi and Chebyshev steps
+    rows[3]["launches_by_path"].update(
+        {p: sum(v["K4"]) for p, v in step_by_rank.items()})
+    rows[3]["distributed_step_launches_by_rank"] = {
+        p: v["K4"] for p, v in step_by_rank.items()}
     k4_shapes = t_spmv["K4_shapes"] + [slice_c["topopt"]["k4_times"], t_fm,
-                                       t_dyn_fm, dist["k4_times"]]
+                                       t_dyn_fm, dist["k4_times"],
+                                       dist["k4_step_times"]]
     for row, k in ((rows[3], "K4"), (rows[4], "K4T")):
         row.update(design=t_spmv[k]["design"],
                    burst_ms=t_spmv[k]["burst_ms"], share=t_spmv[k]["share"],

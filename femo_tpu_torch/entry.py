@@ -5,8 +5,9 @@
 * `dryrun_multichip(n)`: one step of each distributed path of the port on
   n ranks (`parallel/launch.spawn`), the counterpart of
   `__graft_entry__._dryrun_multichip_body` for what the port distributes:
-  mode a (cells sharded) on the Poisson, motor and shell steps, and mode
-  b's dof-sharded halo CG.
+  mode a (cells sharded) on the Poisson, motor and shell steps, mode b's
+  dof-sharded halo CG, and mode b inside the shell and FSI steps
+  (`parallel/halo_step.py`).
 
     from femo_tpu_torch.entry import entry, dryrun_multichip
     fn, args = entry()          # device=None: the card
@@ -87,10 +88,69 @@ def _dryrun_rank(mesh):
     return lines
 
 
+# the shell halo step's bar against the unsharded step (value and
+# gradient, relative), the JAX dryrun's
+HALO_STEP_BAR = 1e-8
+
+
+def _dryrun_halo_steps(mesh):
+    """The JAX dryrun's two mode-b step lines on one rank, rank 0
+    printing them: the shell halo step at (3, 4) with block Jacobi
+    against the unsharded `build_shell_sharded_step` (HALO_STEP_BAR in
+    value and gradient, or raise), and the FSI halo step at (3, 4) /
+    (2, 3) with 3 Gauss-Seidel passes (finite).  Departure: the FSI step
+    takes block Jacobi where the JAX dryrun keeps point Jacobi, whose
+    solves take ~4x the CG iterations on this wing (1,170 against 300 on
+    CPU ranks), each iteration a gloo exchange pair and two all-reduces.
+    Returns (lines, values): values holds each step's (value, gradient)
+    as numpy, and the halo steps' cores (`shell_core`, `fsi_core`)."""
+    from .models.shell import build_shell_sharded_step
+    from .parallel.halo_step import build_fsi_halo_step, build_shell_halo_step
+
+    n, lines = mesh.size, []
+    hstep, ht0, hinfo = build_shell_halo_step(n_shell=(3, 4),
+                                              device_mesh=mesh,
+                                              precond="bjacobi")
+    hval, hgrad = (t.cpu().numpy() for t in hstep(ht0))
+    sstep, st0, _ = build_shell_sharded_step(n_shell=(3, 4),
+                                             device=mesh.device)
+    sval, sgrad = (t.cpu().numpy() for t in sstep(st0))
+    rv = abs(float(hval) - float(sval)) / abs(float(sval))
+    rg = float(np.linalg.norm(hgrad - sgrad) / np.linalg.norm(sgrad))
+    if not (rv < HALO_STEP_BAR and rg < HALO_STEP_BAR):
+        raise RuntimeError(f"the distributed-solve shell step deviates "
+                           f"from the unsharded one: value rel {rv:.3e}, "
+                           f"grad rel {rg:.3e}")
+    lines.append(f"dryrun_multichip({n}) mode b (shell step w/ DISTRIBUTED "
+                 f"halo-CG solve): compliance={float(hval):.6e}, "
+                 f"single-device match value {rv:.2e} / grad {rg:.2e}")
+
+    fstep, ft0, finfo = build_fsi_halo_step(n_shell=(3, 4), n_vlm=(2, 3),
+                                        device_mesh=mesh, gs_passes=3,
+                                        precond="bjacobi")
+    ftip, fgrad = (t.cpu().numpy() for t in fstep(ft0))
+    fgn = float(np.linalg.norm(fgrad))
+    _finite("FSI tip or gradient", float(ftip), fgn)
+    lines.append(f"dryrun_multichip({n}) mode b (COUPLED FSI w/ "
+                 f"distributed shell solves): tip={float(ftip):.6e}, "
+                 f"|d(tip)/d(t)|={fgn:.6e}")
+    if mesh.rank == 0:
+        print("\n".join(lines), flush=True)
+    return lines, dict(shell=(float(hval), hgrad),
+                       unsharded=(float(sval), sgrad),
+                       fsi=(float(ftip), fgrad), shell_core=hinfo["core"],
+                       fsi_core=finfo["core"])
+
+
+def _dryrun_all(mesh):
+    return _dryrun_rank(mesh) + _dryrun_halo_steps(mesh)[0]
+
+
 def dryrun_multichip(n_devices: int, device=None) -> list[str]:
     """One step of each distributed path on n_devices ranks (on the
     card(s) by default; device="cpu": gloo CPU ranks).  Raises if a rank
-    fails or a value is not finite; returns rank 0's lines."""
+    fails or a value is not finite, or if the shell halo step misses the
+    unsharded step; returns rank 0's lines."""
     from .parallel.launch import spawn
 
-    return spawn(_dryrun_rank, n_devices, device=device)[0]
+    return spawn(_dryrun_all, n_devices, device=device)[0]

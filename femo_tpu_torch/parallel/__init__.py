@@ -13,4 +13,8 @@ process group.  Two modes, as in the JAX package:
   ghost copies of its partition boundary; the matvec exchanges halos with
   `all_to_all_single` and runs the element SpMV K4 on the rank's own
   elements; the distributed CG all-reduces its dot products.
+* mode b inside the workload steps (`halo_step.py`): the shell and FSI
+  steps with every linear solve, forward and adjoint, a halo CG over
+  the composite (u, theta) dofs, preconditioned by Jacobi, Chebyshev or
+  the per-rank block Jacobi (K1/K2 on each rank).
 """

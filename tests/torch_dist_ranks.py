@@ -168,3 +168,86 @@ def halo_checks(mesh):
     dist.barrier()
     out["example"] = _rank(mesh, HALO_NEL)
     return out
+
+
+
+# the shell halo steps held against the JAX package (oracles/
+# distributed_oracle.npz keys shell34_halo_<key>_*) at n_shell=(3, 4):
+# bjacobi is the dryrun's step (entry._dryrun_halo_steps), jacobi and
+# cheby6 (cheby_degree=6) build_shell_halo_step's; cheby0 is the jacobi
+# run (cheby_degree=0 is point Jacobi), as in the JAX package
+HALO_STEP_SHELL = (3, 4)
+HALO_STEP_ITERS_SHELL = (4, 6)  # the iteration counts of jacobi, bjacobi
+
+
+def step_rhs(info, t0):
+    """The right-hand side of a shell halo step's forward solve at t0,
+    b = -R(0) on the free dofs (the load of build_shell_halo_step)."""
+    core = info["core"]
+    force = torch.zeros(info["shell"].Vf.n_dofs, dtype=t0.dtype)
+    force[2::3] = 2.0e3
+    zeros = torch.zeros(core["n_dofs"], dtype=t0.dtype)
+    return torch.where(core["free"], -core["residual"](zeros, t0, force),
+                       0.0)
+
+
+def _halo_summary(core, J, g):
+    lay = core["lay"]
+    return dict(J=J, g=g, iters=list(core["core"].iterations),
+                LGS=(lay.L, lay.G, lay.S), ghosts=core["ghosts"],
+                n_owned=lay.n_owned, owned=lay.owned_global,
+                owner=lay.owner_of, bj=core["bj"])
+
+
+def halo_step_checks(mesh):
+    """Mode b inside the workload steps on two groups of 4 ranks that run
+    at once (a rank's results are its group's checks; the tests merge
+    rank r of both groups): group 0 the shell halo step with jacobi
+    (value, gradient, each solve's iterations, the layout, the ghosts),
+    the Chebyshev-6 forward solve and its compliance, and the CG
+    iterations at (4, 6) with jacobi and bjacobi; group 1 the dryrun's
+    two step lines (the shell halo step at (3, 4) with block Jacobi
+    beside the unsharded step, the FSI halo step); each with the kernel
+    counts around it (CPU tensors launch none).  Every collective stays
+    inside its group."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from femo_tpu_torch.entry import _dryrun_halo_steps
+    from femo_tpu_torch.ops import bt_sweeps, spmv
+    from femo_tpu_torch.parallel.halo_step import build_shell_halo_step
+    from femo_tpu_torch.parallel.sharding import RankMesh
+
+    n = mesh.size // 2
+    groups = [dist.new_group(list(range(g * n, (g + 1) * n)))
+              for g in range(2)]
+    g = mesh.rank // n
+    sub = RankMesh(groups[g], mesh.rank % n, n, mesh.device)
+    before = dict(spmv.launches, **bt_sweeps.launches)
+    out = {}
+    if g == 1:
+        lines, vals = _dryrun_halo_steps(sub)
+        out.update(lines=lines, unsharded=vals["unsharded"],
+                   fsi=vals["fsi"], bjacobi=_halo_summary(
+                       vals["shell_core"], *vals["shell"]))
+    else:
+        step, t0, info = build_shell_halo_step(
+            n_shell=HALO_STEP_SHELL, device_mesh=sub, precond="jacobi")
+        J, g_ = step(t0)
+        out["jacobi"] = _halo_summary(info["core"], float(J), _np(g_))
+        # Chebyshev: the forward solve and its compliance (the card's run
+        # of chip_smoke.py holds the gradient too)
+        _, t0, info = build_shell_halo_step(
+            n_shell=HALO_STEP_SHELL, device_mesh=sub, cheby_degree=6)
+        core = info["core"]
+        x = core["solve"](t0, info["force"])
+        J = core["c_fn"]({"u": x[:core["off"]], "force": info["force"]})
+        out["cheby6"] = _halo_summary(core, float(J), None)
+        for key in ("jacobi", "bjacobi"):
+            step, t0, info = build_shell_halo_step(
+                n_shell=HALO_STEP_ITERS_SHELL, device_mesh=sub,
+                precond=key)
+            out[f"iters46_{key}"] = info["core"]["halo_cg"](
+                t0, step_rhs(info, t0))[1]
+    out[f"launches{g}"] = (before, dict(spmv.launches, **bt_sweeps.launches))
+    return out
