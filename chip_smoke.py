@@ -366,6 +366,7 @@ from femo_tpu_torch.solvers.linear import (
 from femo_tpu_torch.parallel.halo import HaloShardedOperator
 from femo_tpu_torch.parallel.sharding import RankMesh
 from femo_tpu_torch.tools import distributed_check
+from femo_tpu_torch.utils.roofline import CHIP_SPECS
 from femo_tpu_torch.tools.example_parity import (
     check_example, check_optimizer, config, load_oracle, run_example)
 from femo_tpu_torch.tools.fsi_conditioning import direct_witness
@@ -1177,10 +1178,13 @@ W1_KRYLOV_ITERS = {"run": [397], "objective_gradient": [411]}  # BiCGStab
 W1_SLSQP_OBJ = [1.3668314815810345e-05, 1.0959285162131653e-05,
                 3.298265080312179e-06, 1.976006143168327e-06]  # nel=32
 SPMV_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and
-# operations/s outside the tensor cores by dtype
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+# H100 SXM published peaks (NVIDIA data sheet; femo_tpu_torch/utils/
+# roofline.py): HBM3 bytes/s, and operations/s outside the tensor cores
+# by dtype
+H100 = CHIP_SPECS["H100 80GB HBM3"]
+HBM_BYTES_PER_S = H100["hbm_bw"]
+PEAK_OPS = {torch.float32: H100["peak_flops_by_dtype"]["float32"],
+            torch.float64: H100["peak_flops_by_dtype"]["float64"]}
 
 
 def bound_ms(nbytes, ops, dtype):
@@ -3740,7 +3744,8 @@ def phase_facets_3d():
 DIST_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "oracles", "distributed_oracle.npz")
 DIST = dict(ranks=4, nel=260, rtol=1e-8, poisson_nel=260, motor_refine=1,
-            shell_shape=(3, 4), halo_step=distributed_check.HALO_STEP)
+            shell_shape=(3, 4), halo_step=distributed_check.HALO_STEP,
+            motor_halo=distributed_check.MOTOR_HALO)
 # the oracle entries they are held to: the halo CG's (halo260_*) and the
 # motor's in oracles/motor_oracle.npz
 DIST_KEYS = dict(halo="halo260", motor="r1_lu")
@@ -3766,6 +3771,14 @@ DIST_GATES = dict(residual=2e-8, dist_factor=10.0, iters=0.03,
 HALO_STEP_RESIDUAL = 1e-3
 SMALL_STEP_GATES = dict(shell=1e-8, fsi=1e-7)
 HALO_ITERS = 0.15
+# mode b inside the motor step (parallel/halo_newton.py): bench.py's
+# refine-1 motor at n6 (distributed_check.MOTOR_HALO), held to the port's
+# single-device dense-LU step in this run and to the JAX package's f64
+# value of that step (distributed_oracle.npz MOTOR_HALO_KEY_*) at
+# tests/test_motor_halo.py:128-130's bars: loss 1e-10, gradients 1e-8
+MOTOR_HALO_KEY = "motor1_n6_lu_edge"
+MOTOR_HALO_GATES = dict(loss=1e-10, grad=1e-8)
+GMRES_RESTART = 50  # build_halo_newton_solver's default GMRES(m)
 
 
 def constrained_plain(A, free, x):
@@ -3810,7 +3823,11 @@ def phase_distributed(jit_ref):
     (its launches against the CG's matvecs, against its plain version)
     and timed at rank 0's local shape; mode a's three steps against the
     port's unsharded Poisson step (`jit_ref`, phase jit_step), the motor
-    oracle's r1_lu and the shell oracle entry."""
+    oracle's r1_lu and the shell oracle entry; mode b inside the shell
+    and FSI steps (halo_step_checks, small_steps_checks) and inside the
+    motor step (motor_halo_checks: bench.py's refine-1 motor at n6, halo
+    GMRES and CG with K4/K4T on every rank, against the single-device
+    step and the JAX oracle), with K4/K4T timed at its rank-0 shapes."""
     oracle = np.load(DIST_ORACLE)
     t0 = time.perf_counter()
     res = distributed_check.run(device=DEVICE, **DIST)
@@ -3900,11 +3917,14 @@ def phase_distributed(jit_ref):
           f"mode a {res[0]['mode_a_s']:.1f} s")
     step = halo_step_checks([r["halo_step"] for r in res])
     small = small_steps_checks([r["small_steps"] for r in res], oracle)
+    motor = motor_halo_checks([r["motor_halo"] for r in res], oracle)
     t_sw, t_k4s = halo_step_times(step)
+    t_mh = motor_halo_times()
     print(f"  seconds (rank 0): mode b {res[0]['halo_s']:.1f}, mode a "
           f"{res[0]['mode_a_s']:.1f}, shell halo step "
           f"{res[0]['halo_step_s']:.1f}, steps at (3, 4) "
-          f"{res[0]['small_steps_s']:.1f}")
+          f"{res[0]['small_steps_s']:.1f}, motor halo step "
+          f"{res[0]['motor_halo_s']:.1f}")
     return dict(
         launches_by_rank=k4, launches=sum(k4), k4_err=max(
             [r["halo"]["k4_max_abs_err"] for r in res] + [step["K4_err"]]),
@@ -3917,8 +3937,11 @@ def phase_distributed(jit_ref):
         small_steps=small, sweep_times=t_sw, k4_step_times=t_k4s,
         step_launches=dict(step["launches"], **small["launches"]),
         sweep_err={k: step[f"{k}_err"] for k in ("K1", "K2")},
+        motor_halo={k: v for k, v in motor.items() if k != "launches"},
+        motor_launches=dict(motor["launches"], **small["motor_launches"]),
+        motor_times=t_mh,
         seconds={k: res[0][f"{k}_s"] for k in (
-            "halo", "mode_a", "halo_step", "small_steps")})
+            "halo", "mode_a", "halo_step", "small_steps", "motor_halo")})
 
 
 def ms_per_it(solve):
@@ -4019,6 +4042,20 @@ def halo_step_checks(hs):
                for h in hs])
 
 
+def motor_dryrun_want(md):
+    """K4 and K4T of the dryrun's motor halo step from its Krylov counts
+    (halo_solve_want): every solve but each state's last (its adjoint)
+    forward; mesh motion GMRES on 2 blocks, EM CG on 1."""
+    want = dict(K4=0, K4T=0)
+    for key, kind, blocks in (("mm", "gmres", 2), ("em", "cg", 1)):
+        counts = md[f"{key}_counts"]
+        for i, c in enumerate(counts):
+            w = halo_solve_want(dict(kind=kind, count=c,
+                                     transpose=i == len(counts) - 1), blocks)
+            want = {k: want[k] + w[k] for k in want}
+    return want
+
+
 def small_steps_checks(ss, oracle):
     """The steps at (3, 4), every rank's results (ss, rank 0 first):
     the dryrun's two lines; the shell halo step with bjacobi (the
@@ -4028,12 +4065,15 @@ def small_steps_checks(ss, oracle):
     the code's: K1 = K2 = K4 = the sum of iterations + 1 over the
     dryrun's solves (all block Jacobi), K4 = iterations + 1 a jacobi
     solve and (iterations + 1) x 6 a Chebyshev-6 solve (each application
-    5 matvecs), no K1/K2; every rank's values equal."""
+    5 matvecs), no K1/K2; every rank's values equal.  The dryrun's motor
+    line: K4 and K4T as its Krylov counts give them (motor_dryrun_want),
+    its loss and counts equal on every rank."""
     s0 = ss[0]
-    print("  " + "\n  ".join(s0["lines"]))
+    print("  " + "\n  ".join(s0["lines"] + s0["motor_dryrun"]["lines"]))
     launches = {p: {k: [] for k in ("K1", "K2", "K4")} for p in (
         "distributed_dryrun_halo_steps", "distributed_shell34_jacobi",
         "distributed_shell34_cheby6")}
+    motor = {"K4": [], "K4T": []}
     for s in ss:
         its = [i for core in s["dryrun_iterations"] for i in core]
         want = sum(i + 1 for i in its)
@@ -4052,6 +4092,19 @@ def small_steps_checks(ss, oracle):
                                          f"code {want}")
             for k, n in launches[f"distributed_shell34_{key}"].items():
                 n.append(sum(sol[k] for sol in s[key]["solves"]))
+        md = s["motor_dryrun"]
+        want = motor_dryrun_want(md)
+        if {k: md[k] for k in want} != want:
+            raise AssertionError(f"the dryrun's motor halo step launched "
+                                 f"{ {k: md[k] for k in want} }, the code "
+                                 f"{want}")
+        for k in want:
+            motor[k].append(md[k])
+        if (md["loss"], md["mm_counts"], md["em_counts"]) != (
+                s0["motor_dryrun"]["loss"], s0["motor_dryrun"]["mm_counts"],
+                s0["motor_dryrun"]["em_counts"]):
+            raise AssertionError("the dryrun's motor halo step differs "
+                                 "between the ranks")
         for key in ("shell", "fsi", "jacobi", "cheby6"):
             if not (s[key]["J"] == s0[key]["J"]
                     and np.array_equal(s[key]["g"], s0[key]["g"])):
@@ -4077,8 +4130,167 @@ def small_steps_checks(ss, oracle):
                 raise AssertionError(f"(3, 4) {key}: CG iterations off "
                                      "JAX's")
     return dict(launches=launches, iterations=iters,
+                motor_launches={"distributed_dryrun_motor_halo": motor},
                 dryrun_s=s0["dryrun_s"],
                 seconds={k: s0[k]["seconds"] for k in ("jacobi", "cheby6")})
+
+
+def halo_solve_want(solve, blocks):
+    """What one halo Newton Krylov solve launches and communicates, from
+    the code (parallel/halo.py): GMRES 1 + cycles (m + 2) products, CG
+    iterations + 1, each product K4 (K4T in the transpose) once per
+    element block; GMRES 2 exchanges a product + 1 (the diagonal) and
+    cycles (2 m + 2) + 1 all-reduces (2 an Arnoldi step, 2 a cycle, 1 at
+    the start); CG 2 iterations + 4 exchanges and no all-reduce."""
+    m = GMRES_RESTART
+    if solve["kind"] == "gmres":
+        products = 1 + solve["count"] * (m + 2)
+        coll = dict(exchanges=2 * products + 1,
+                    all_reduces=solve["count"] * (2 * m + 2) + 1)
+    else:
+        products = solve["count"] + 1
+        coll = dict(exchanges=2 * solve["count"] + 4, all_reduces=0)
+    k = "K4T" if solve["transpose"] else "K4"
+    return dict({k: products * blocks, ("K4" if k == "K4T" else "K4T"): 0},
+                **coll)
+
+
+def motor_halo_checks(mh, oracle):
+    """The motor halo step, every rank's results (mh, rank 0 first):
+    loss and gradients against the port's single-device dense-LU step at
+    the same settings, built and run here, and against the JAX package's
+    f64 value of that step (MOTOR_HALO_KEY) at MOTOR_HALO_GATES; every
+    rank's values and Krylov counts equal; each solve's K4/K4T launches
+    and collectives equal to the code's (halo_solve_want); K4 and K4T
+    against their plain versions on each rank's blocks of both states
+    (SPMV_TOL of the largest entry); the times of an Arnoldi step and a
+    CG iteration and their split."""
+    h0, cfg = mh[0], DIST["motor_halo"]
+    t_single, single = synced(lambda: distributed_check.motor_single(
+        cfg, DEVICE))
+    print(f"  motor halo step {cfg}: mesh motion {h0['mm']['n_dofs']} dofs "
+          f"(blocks {h0['mm']['blocks']} a rank), EM {h0['em']['n_dofs']} "
+          f"(blocks {h0['em']['blocks']}); layouts L/G/S mm "
+          f"{h0['mm']['L']}/{h0['mm']['G']}/{h0['mm']['S']}, em "
+          f"{h0['em']['L']}/{h0['em']['G']}/{h0['em']['S']}; build "
+          f"{h0['build_s']:.2f} s, step {h0['step_s']:.2f} s (rank 0); the "
+          f"single-device dense-LU step here {t_single:.2f} s")
+    g = MOTOR_HALO_GATES
+    for ref, (loss, g_dv, g_iq) in (
+            ("the port's single-device step", single),
+            ("JAX", tuple(oracle[f"{MOTOR_HALO_KEY}_{k}"]
+                          for k in ("loss", "g_dv", "g_iq")))):
+        rl = abs(h0["loss"] - float(loss)) / abs(float(loss))
+        rg = rel(torch.as_tensor(h0["g_dv"]), torch.as_tensor(g_dv))
+        ri = abs(h0["g_iq"] - float(g_iq)) / abs(float(g_iq))
+        print(f"    vs {ref}: loss {h0['loss']!r} / {float(loss)!r} rel "
+              f"{rl:.3e} (tol {g['loss']:.0e}); g_dv ({h0['n_dv']}) rel L2 "
+              f"{rg:.3e}, g_iq rel {ri:.3e} (tol {g['grad']:.0e})")
+        if not (rl <= g["loss"] and rg <= g["grad"] and ri <= g["grad"]):
+            raise AssertionError(f"the motor halo step disagrees with {ref}")
+    launches = {k: [] for k in ("K4", "K4T")}
+    err = {k: 0.0 for k in launches}
+    for h in mh:
+        if not (h["loss"] == h0["loss"] and h["g_iq"] == h0["g_iq"]
+                and np.array_equal(h["g_dv"], h0["g_dv"])):
+            raise AssertionError("the motor halo step's values differ "
+                                 "between the ranks")
+        for key in ("mm", "em"):
+            st, blocks = h[key], len(h[key]["blocks"])
+            expect(f"motor halo {key} Krylov counts on every rank",
+                   [x["count"] for x in st["solves"]],
+                   [x["count"] for x in h0[key]["solves"]])
+            for x in st["solves"]:
+                want = halo_solve_want(x, blocks)
+                got = {k: x[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"rank {h['rank']} {key} solve: "
+                                         f"{got}, the code {want}")
+            for b in st["kernels"]:
+                for k in ("K4", "K4T"):
+                    e, mx = b[k]
+                    if not e <= SPMV_TOL[torch.float64] * mx:
+                        raise AssertionError(
+                            f"rank {h['rank']} {key} {b['shape']}: {k} "
+                            f"disagrees with its plain version ({e:.3e})")
+                    err[k] = max(err[k], e)
+        for k in launches:
+            launches[k].append(sum(x[k] for key in ("mm", "em")
+                                   for x in h[key]["solves"]))
+    per = {}
+    for key in ("mm", "em"):
+        st = h0[key]
+        gm = [x for x in st["solves"] if x["kind"] == "gmres"]
+        steps = sum(x["count"] * GMRES_RESTART for x in gm)
+        its = sum(x["count"] for x in st["solves"] if x["kind"] == "cg")
+        secs = sum(x["seconds"] for x in st["solves"])
+        per[key] = dict(
+            solves=len(st["solves"]), counts=[x["count"]
+                                              for x in st["solves"]],
+            solve_s=secs, assembly_s=sum(st["assembly_s"]),
+            assemblies=len(st["assembly_s"]),
+            ms_per_arnoldi_step=secs / steps * 1e3 if steps else None,
+            ms_per_cg_iteration=secs / its * 1e3 if its else None,
+            split_ms=st["split_ms"], split_t_ms=st["split_t_ms"])
+        print(f"    {key}: {per[key]['solves']} solves, counts "
+              f"{per[key]['counts']} ({'GMRES cycles' if gm else 'CG iterations'}"
+              f"), {secs:.2f} s of solves ("
+              + (f"{per[key]['ms_per_arnoldi_step']:.3f} ms an Arnoldi step"
+                 if gm else
+                 f"{per[key]['ms_per_cg_iteration']:.3f} ms a CG iteration")
+              + f"), {per[key]['assemblies']} Jacobian assemblies "
+              f"{per[key]['assembly_s']:.2f} s; split (ms a call): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st["split_ms"].items())
+              + "; transpose: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in st["split_t_ms"].items()))
+    print(f"    K4/K4T vs plain on every rank's blocks: max abs "
+          f"{err['K4']:.3e} / {err['K4T']:.3e}; launches a rank K4 "
+          f"{launches['K4']}, K4T {launches['K4T']}; peak "
+          f"{max(h['peak_gib'] for h in mh):.2f} GiB a rank")
+    return dict(launches=dict(distributed_motor_halo_step=launches),
+                err=err, single_s=t_single, step_s=h0["step_s"],
+                build_s=h0["build_s"], per_state=per,
+                loss=h0["loss"], peak_gib=[h["peak_gib"] for h in mh])
+
+
+def motor_halo_times():
+    """K4 and K4T at rank 0's blocks of the motor halo step (time_element):
+    the mesh motion's cell term (6 x 6) and Nitsche facet term (12 x 12),
+    EM's cell term (3 x 3), each alone on rank 0's local slots, assembled
+    here at dv0 with the states at 0, on the otherwise idle card, without
+    a process group."""
+    from femo_tpu_torch.models.motor.model import (
+        em_vals, mm_vals, motor_problem)
+    from femo_tpu_torch.models.motor.pde import source_tables
+
+    cfg = DIST["motor_halo"]
+    dev = torch.device(DEVICE)
+    mp = motor_problem(cfg["refine"], None, cfg["design_space"], dev)
+    zmm = torch.zeros(mp.Vmm.n_dofs, dtype=torch.float64, device=dev)
+    Ht, Jt = source_tables(torch.as_tensor(1e5, dtype=torch.float64,
+                                           device=dev),
+                           torch.zeros((), dtype=torch.float64, device=dev))
+    out = []
+    for key, cf, wrt, free, vals in (
+            ("mesh motion", mp.mm_cf, "uhat", mp.free_mm,
+             mm_vals(zmm, {"uhat_bc": mp.to_bc(mp.dv0)})),
+            ("EM", mp.em_cf, "A_z", mp.free_em, em_vals(torch.zeros(
+                mp.Vem.n_dofs, dtype=torch.float64, device=dev),
+                {"uhat": zmm, "Htable": Ht, "Jtable": Jt}))):
+        op = HaloShardedOperator.from_terms(
+            cf.terms, wrt, cf.form.test.n_dofs,
+            RankMesh(None, 0, DIST["ranks"], dev), free=free)
+        with torch.no_grad():
+            op.set_elements([v.matrix_blocks(vals, "__test__", wrt)[0]
+                             * m[:, None, None] for v, m in op.views])
+        for b, t in zip(op.local.blocks, cf.terms):
+            ne, nr, nc = b.A.shape
+            out.append(time_element(
+                f"motor halo rank 0 of {DIST['ranks']} (refine "
+                f"{cfg['refine']}), {key} {t.domain} term, {ne} {nr}x{nc} "
+                "blocks, local slots",
+                ElementMatrix([b], op.n_local, op.n_local), 47 + len(out)))
+    return out
 
 
 def halo_step_times(step):
@@ -4510,7 +4722,8 @@ def main_sequence(t_start, seconds, card, sides):
     dist = timed_phase("distributed", seconds, phase_distributed, jit_ref)
     print("distributed summary: " + json.dumps(
         {k: v for k, v in dist.items()
-         if k not in ("k4_times", "k4_step_times", "sweep_times")}))
+         if k not in ("k4_times", "k4_step_times", "sweep_times",
+                      "motor_times")}))
     for k in ("K1", "K2"):
         err[k] = max(err[k], dist["sweep_err"][k])
     # mode b inside the steps, launches by rank: path -> kernel -> list
@@ -4548,6 +4761,8 @@ def main_sequence(t_start, seconds, card, sides):
                           + [slice_c[p]["err"][k] for p in
                              ("w1_weak", "w2", "topopt")])
     err_spmv["K4"] = max(err_spmv["K4"], dist["k4_err"])
+    for k in ("K4", "K4T"):
+        err_spmv[k] = max(err_spmv[k], dist["motor_halo"]["err"][k])
     print("motor summary: " + json.dumps({
         "refine4_cr": r4cr,
         "refine4_refactor3": r4b, "refine1": r1b, "lu_basis": lb,
@@ -4604,9 +4819,16 @@ def main_sequence(t_start, seconds, card, sides):
         {p: sum(v["K4"]) for p, v in step_by_rank.items()})
     rows[3]["distributed_step_launches_by_rank"] = {
         p: v["K4"] for p, v in step_by_rank.items()}
+    # K4 and K4T in each rank of mode b inside the motor step: every
+    # GMRES and CG product of both states, the adjoints' K4T
+    for row, k in ((rows[3], "K4"), (rows[4], "K4T")):
+        for p, v in dist["motor_launches"].items():
+            row["launches_by_path"][p] = sum(v[k])
+            row.setdefault("distributed_step_launches_by_rank", {})[p] = v[k]
     k4_shapes = t_spmv["K4_shapes"] + [slice_c["topopt"]["k4_times"], t_fm,
                                        t_dyn_fm, dist["k4_times"],
-                                       dist["k4_step_times"]]
+                                       dist["k4_step_times"]] + \
+        dist["motor_times"]
     for row, k in ((rows[3], "K4"), (rows[4], "K4T")):
         row.update(design=t_spmv[k]["design"],
                    burst_ms=t_spmv[k]["burst_ms"], share=t_spmv[k]["share"],

@@ -6,8 +6,9 @@
   n ranks (`parallel/launch.spawn`), the counterpart of
   `__graft_entry__._dryrun_multichip_body` for what the port distributes:
   mode a (cells sharded) on the Poisson, motor and shell steps, mode b's
-  dof-sharded halo CG, and mode b inside the shell and FSI steps
-  (`parallel/halo_step.py`).
+  dof-sharded halo CG, mode b inside the shell and FSI steps
+  (`parallel/halo_step.py`) and inside the motor step
+  (`parallel/halo_newton.py`).
 
     from femo_tpu_torch.entry import entry, dryrun_multichip
     fn, args = entry()          # device=None: the card
@@ -142,15 +143,57 @@ def _dryrun_halo_steps(mesh):
                        fsi_core=finfo["core"])
 
 
+# the motor halo step's loss against the single-device step's (relative),
+# the JAX dryrun's; its n2 gradient is only held finite (the adjoints
+# assemble at different states, see parallel/halo_newton.py)
+MOTOR_HALO_BAR = 1e-8
+MOTOR_HALO_DRYRUN = dict(refine=0.5, em_load_steps=1, mm_newton_iters=2,
+                         em_newton_iters=2)
+
+
+def _dryrun_motor_halo(mesh):
+    """The JAX dryrun's motor line on one rank, rank 0 printing it: the
+    motor halo step (mesh motion by halo GMRES, EM by halo CG) at
+    MOTOR_HALO_DRYRUN, "basis", beside the single-device dense-LU step:
+    loss within MOTOR_HALO_BAR, or raise; gradient finite.  Returns
+    (lines, values): values holds each step's (loss, g_dv, g_iq) as numpy
+    (`halo`, `single`) and the halo step's info (`info`)."""
+    from .models.motor.model import build_motor_jit_step
+    from .parallel.halo_newton import build_motor_halo_step
+
+    hstep, (dv, iq), info = build_motor_halo_step(device_mesh=mesh,
+                                                  **MOTOR_HALO_DRYRUN)
+    hval, (hg, hgi) = hstep(dv, iq)
+    sstep, _, _ = build_motor_jit_step(device=mesh.device,
+                                       **MOTOR_HALO_DRYRUN)
+    sval, (sg, sgi) = sstep(dv, iq)
+    halo, single = ((float(v), g.cpu().numpy(), float(gi))
+                    for v, g, gi in ((hval, hg, hgi), (sval, sg, sgi)))
+    rv = abs(halo[0] - single[0]) / abs(single[0])
+    rg = float(np.linalg.norm(halo[1] - single[1])
+               / np.linalg.norm(single[1]))
+    _finite("motor halo loss or gradient", halo[0], halo[1], halo[2], rg)
+    if not rv < MOTOR_HALO_BAR:
+        raise RuntimeError(f"the distributed motor forward deviates from "
+                           f"the single-device step: value rel {rv:.3e}")
+    line = (f"dryrun_multichip({mesh.size}) mode b (MOTOR w/ DISTRIBUTED "
+            f"GMRES+CG solves): loss={halo[0]:.6e}, single-device match "
+            f"value {rv:.2e} / grad {rg:.2e}")
+    if mesh.rank == 0:
+        print(line, flush=True)
+    return [line], dict(halo=halo, single=single, info=info)
+
+
 def _dryrun_all(mesh):
-    return _dryrun_rank(mesh) + _dryrun_halo_steps(mesh)[0]
+    return (_dryrun_rank(mesh) + _dryrun_halo_steps(mesh)[0]
+            + _dryrun_motor_halo(mesh)[0])
 
 
 def dryrun_multichip(n_devices: int, device=None) -> list[str]:
     """One step of each distributed path on n_devices ranks (on the
     card(s) by default; device="cpu": gloo CPU ranks).  Raises if a rank
-    fails or a value is not finite, or if the shell halo step misses the
-    unsharded step; returns rank 0's lines."""
+    fails or a value is not finite, or if the shell or motor halo step
+    misses its single-device step; returns rank 0's lines."""
     from .parallel.launch import spawn
 
     return spawn(_dryrun_all, n_devices, device=device)[0]

@@ -16,6 +16,7 @@ femo_tpu/models/motor/model.py).
 from __future__ import annotations
 
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -341,6 +342,68 @@ def build_motor_model(refine: float = 1, iq0: float = 1.0e5,
                        A_z=A_z, Vmm=Vmm, Vem=Vem, bh=bh)
 
 
+def mm_vals(u, p):
+    """The mesh-motion residual's values at state u and inputs p."""
+    return {"uhat": u, "uhat_bc": p["uhat_bc"]}
+
+
+def em_vals(u, p):
+    """The magnetostatics residual's values at state u and inputs p."""
+    return {"A_z": u, "uhat": p["uhat"], "Htable": p["Htable"],
+            "Jtable": p["Jtable"]}
+
+
+def em_scale(p, s):
+    """The EM load step's inputs: the source tables scaled by s."""
+    return {"uhat": p["uhat"], "Htable": p["Htable"] * s,
+            "Jtable": p["Jtable"] * s}
+
+
+def motor_problem(refine, mesh, design_space: str, device):
+    """What the motor steps share (`build_motor_jit_step` and
+    parallel/halo_newton.py's `build_motor_halo_step`), on `device`: the
+    mesh (None: the procedural one at `refine`), the spaces Vmm and Vem,
+    the compiled mesh-motion, EM, eddy and hysteresis forms, each state's
+    BC mask and values (free_mm, bv_mm, free_em, bv_em), to_bc(dv) ->
+    uhat_bc and dv0 in `design_space`."""
+    if design_space not in ("edge_deltas", "basis"):
+        raise ValueError(f"unknown design_space {design_space!r}")
+    if mesh is None:
+        mesh = create_motor_mesh(refine)
+    Vmm = FunctionSpace(mesh, ("CG", 1), ncomp=2, device=device)
+    Vem = FunctionSpace(mesh, ("CG", 1), device=device)
+    uhat = Function(Vmm, "uhat")
+    uhat_bc = Function(Vmm, "uhat_bc")
+    A_z = Function(Vem, "A_z")
+    Htable = GlobalCoefficient("Htable", np.zeros((NTAGS, 2)), device)
+    Jtable = GlobalCoefficient("Jtable", np.zeros(NTAGS), device)
+    bh = PiecewiseBHCurve()
+    free_mm, bv_mm = bc_arrays(
+        [DirichletBC(Vmm, 0.0, where=_on_rim)], Vmm.n_dofs, device)
+    free_em, bv_em = bc_arrays(
+        [DirichletBC(Vem, 0.0, where=_on_rim)], Vem.n_dofs, device)
+
+    # dv -> uhat_bc; dv0 is the radial/tangential boundary displacement
+    # (5e-4, 3e-4) in both spaces, computed on the host as the JAX package
+    # computes it
+    basis = boundary_displacement_basis(mesh, Vmm)
+    dv0_np = np.array([5e-4, 3e-4])
+    if design_space == "edge_deltas":
+        to_bc, _, _, iface_dofs = edge_delta_design_space(mesh, Vmm)
+        dv0_np = (basis.cpu().numpy() @ dv0_np)[iface_dofs.cpu().numpy()]
+    else:
+        to_bc = lambda dv: basis @ dv  # noqa: E731
+    return SimpleNamespace(
+        mesh=mesh, Vmm=Vmm, Vem=Vem,
+        mm_cf=compile_form(mesh_motion_residual_form(uhat, uhat_bc)),
+        em_cf=compile_form(em_residual_form(A_z, uhat, Htable, Jtable, bh)),
+        eddy_cf=compile_form(b_power_form(A_z, uhat, 2.0, (1, 2))),
+        hyst_cf=compile_form(b_power_form(A_z, uhat, 1.76835, (1, 2))),
+        free_mm=free_mm, bv_mm=bv_mm, free_em=free_em, bv_em=bv_em,
+        to_bc=to_bc, dv0=torch.as_tensor(dv0_np, dtype=config.dtype,
+                                         device=device))
+
+
 def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
                          mm_newton_iters: int = 3, em_newton_iters: int = 3,
                          frequency: float = 300.0,
@@ -383,55 +446,15 @@ def build_motor_jit_step(refine: float = 1, em_load_steps: int = 3,
         device = device_mesh.device
     device = get_device(device)
     dt = config.dtype
-    if mesh is None:
-        mesh = create_motor_mesh(refine)
-    Vmm = FunctionSpace(mesh, ("CG", 1), ncomp=2, device=device)
-    Vem = FunctionSpace(mesh, ("CG", 1), device=device)
-    uhat = Function(Vmm, "uhat")
-    uhat_bc = Function(Vmm, "uhat_bc")
-    A_z = Function(Vem, "A_z")
-    Htable = GlobalCoefficient("Htable", np.zeros((NTAGS, 2)), device)
-    Jtable = GlobalCoefficient("Jtable", np.zeros(NTAGS), device)
-    bh = PiecewiseBHCurve()
-
-    mm_cf = compile_form(mesh_motion_residual_form(uhat, uhat_bc))
-    em_cf = compile_form(em_residual_form(A_z, uhat, Htable, Jtable, bh))
-    eddy_cf = compile_form(b_power_form(A_z, uhat, 2.0, (1, 2)))
-    hyst_cf = compile_form(b_power_form(A_z, uhat, 1.76835, (1, 2)))
-
-    free_mm, bv_mm = bc_arrays(
-        [DirichletBC(Vmm, 0.0, where=_on_rim)], Vmm.n_dofs, device)
-    free_em, bv_em = bc_arrays(
-        [DirichletBC(Vem, 0.0, where=_on_rim)], Vem.n_dofs, device)
-
-    # dv -> uhat_bc; dv0 is the radial/tangential boundary displacement
-    # (5e-4, 3e-4) in both spaces, computed on the host as the JAX package
-    # computes it
-    basis = boundary_displacement_basis(mesh, Vmm)
-    dv0_np = np.array([5e-4, 3e-4])
-    if design_space == "edge_deltas":
-        to_bc, _, _, iface_dofs = edge_delta_design_space(mesh, Vmm)
-        dv0_np = (basis.cpu().numpy() @ dv0_np)[iface_dofs.cpu().numpy()]
-    else:
-        to_bc = lambda dv: basis @ dv  # noqa: E731
-    dv0 = torch.as_tensor(dv0_np, dtype=dt, device=device)
-
-    def mm_vals(u, p):
-        return {"uhat": u, "uhat_bc": p["uhat_bc"]}
-
-    def em_vals(u, p):
-        return {"A_z": u, "uhat": p["uhat"], "Htable": p["Htable"],
-                "Jtable": p["Jtable"]}
-
-    def em_scale(p, s):
-        return {"uhat": p["uhat"], "Htable": p["Htable"] * s,
-                "Jtable": p["Jtable"] * s}
-
-    mm = dict(cf=mm_cf, vals=mm_vals, wrt="uhat", free=free_mm, bv=bv_mm,
-              newton_iters=mm_newton_iters, load_steps=2, scale=None)
-    em = dict(cf=em_cf, vals=em_vals, wrt="A_z", free=free_em, bv=bv_em,
-              newton_iters=em_newton_iters, load_steps=em_load_steps,
-              scale=em_scale)
+    mp = motor_problem(refine, mesh, design_space, device)
+    mesh, Vmm, Vem, to_bc, dv0 = mp.mesh, mp.Vmm, mp.Vem, mp.to_bc, mp.dv0
+    eddy_cf, hyst_cf = mp.eddy_cf, mp.hyst_cf
+    mm = dict(cf=mp.mm_cf, vals=mm_vals, wrt="uhat", free=mp.free_mm,
+              bv=mp.bv_mm, newton_iters=mm_newton_iters, load_steps=2,
+              scale=None)
+    em = dict(cf=mp.em_cf, vals=em_vals, wrt="A_z", free=mp.free_em,
+              bv=mp.bv_em, newton_iters=em_newton_iters,
+              load_steps=em_load_steps, scale=em_scale)
     bt_info, jac_info = {}, {}
 
     def eddy_fn(vals):  # looked up at each call, as the profiler wraps it

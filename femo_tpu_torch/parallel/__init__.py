@@ -17,4 +17,9 @@ process group.  Two modes, as in the JAX package:
   steps with every linear solve, forward and adjoint, a halo CG over
   the composite (u, theta) dofs, preconditioned by Jacobi, Chebyshev or
   the per-rank block Jacobi (K1/K2 on each rank).
+* mode b inside the motor step (`halo_newton.py`): a form-generic halo
+  Newton, every term's entities laid out over the ranks, each rank
+  assembling its own Jacobian blocks each iteration; distributed GMRES
+  (mesh motion) and CG (EM), K4/K4T on each rank, the IFT adjoint on the
+  transpose.
 """

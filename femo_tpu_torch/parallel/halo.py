@@ -25,6 +25,15 @@ function) is computed in full on every rank, which then keeps its own
 slice.  So the layouts, and with them the CG iterations, are the JAX
 package's.
 
+A form of several terms (the motor's mesh motion: hyperelastic cells
+and the interior-facet Nitsche term) gives one element block per term
+(`from_terms`, as femo_tpu/parallel/halo_newton.py lays it out): each
+term's entities in the RCB order of their centroids, padded to a
+multiple of the rank count, the layout from the union of every term's
+row and column lists.  K4 then runs once per block in a product, K4T in
+the transpose product (`matvec(transpose=True)`), and `gmres` solves the
+nonsymmetric systems.
+
 Departures, each for the process-per-rank model: vectors are this rank's
 (L,) owned slots, where the JAX package stacks every device's as an
 (ndev, L) array on one host; each rank keeps its own elements unpadded,
@@ -32,14 +41,19 @@ where the JAX package pads every device to the largest count with a mask;
 `cg` is a Python loop in place of `lax.while_loop`, whose stopping test
 reads the summed residual, so every rank leaves on the same iteration,
 and whose dot products ride on the halo exchanges (two collectives an
-iteration, see `cg`).
+iteration, see `cg`); `gmres` orthogonalizes by classical Gram-Schmidt
+with one reorthogonalization, each pass's dots in one all-reduce, where
+the JAX package's modified Gram-Schmidt makes one psum per dot (see
+`gmres`).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
+import scipy.linalg
 import torch
 import torch.distributed as dist
 
@@ -48,7 +62,7 @@ from ..config import config
 from ..fea.assemble import ElementMatrix, MatBlock, _host
 from ..ops.scatter import OwnerTable
 from ..ops.spmv import ElementSpMVPlan
-from .sharding import RankMesh
+from .sharding import RankMesh, _rank_view, _shard_term_data
 
 
 @dataclass
@@ -136,11 +150,12 @@ class HaloShardedOperator:
 
     emat: the assembled ElementMatrix (every rank passes the same);
     n_dofs: its size; free: the BC mask (None: no BC), the operator then
-    being P A P + (I - P) as on one device.  Or `from_cells` and
-    `set_elements` (see there).  Vectors are this rank's (L,) owned slots
-    (padding slots 0).  Every method that communicates (`matvec`, `dot`,
-    `diagonal`, `gather_vector`, `cg`) must be called by every rank in the
-    same order."""
+    being P A P + (I - P) as on one device.  Or `from_cells` /
+    `from_terms` and `set_elements` (see there).  Vectors are this rank's
+    (L,) owned slots (padding slots 0).  Every method that communicates
+    (`matvec`, `dot`, `diagonal`, `gather_vector`, `cg`, `gmres`) must be
+    called by every rank in the same order.  `collectives` counts this
+    rank's halo exchanges and all-reduces."""
 
     def __init__(self, emat: ElementMatrix, dofmap: np.ndarray, n_dofs: int,
                  mesh: RankMesh, free=None):
@@ -152,7 +167,8 @@ class HaloShardedOperator:
         # package does: the same layout, so the same CG iterations
         part = native.rcb_partition(rows[:, :1].astype(np.float64),
                                     mesh.size)
-        self._setup(rows, cols, n_dofs, part, mesh, free)
+        self._setup(rows, n_dofs, part, mesh, free)
+        self._set_maps([(rows[self.cells], cols[self.cells])])
         self.set_elements(torch.as_tensor(A_e[self.cells],
                                           dtype=config.dtype,
                                           device=mesh.device))
@@ -167,32 +183,80 @@ class HaloShardedOperator:
         assembles only its own cells (the JAX package's halo steps)."""
         op = cls.__new__(cls)
         dofmap = np.asarray(dofmap)
-        op._setup(dofmap, dofmap, n_dofs, np.asarray(part), mesh, free)
+        op._setup(dofmap, n_dofs, np.asarray(part), mesh, free)
+        op._set_maps([(dofmap[op.cells], dofmap[op.cells])])
         return op
 
-    def _setup(self, rows, cols, n_dofs, part, mesh, free):
-        """The layout from the cell partition `part`, this rank's cells
-        (`cells`, increasing) with their local slots, the exchange tables
-        and the owned free mask."""
+    @classmethod
+    def from_terms(cls, terms, wrt: str, n_dofs: int, mesh: RankMesh,
+                   free=None) -> "HaloShardedOperator":
+        """The operator of a compiled form's Jacobian in `wrt` (test space
+        = wrt's space), one element block per term, laid out as the JAX
+        package's halo Newton lays it out (femo_tpu/parallel/
+        halo_newton.py:86-130): each term's entities ordered by the RCB
+        partition of their centroids (`cent0` where the term has one, else
+        the mean of its side-0 cell's vertices), padded to a multiple of
+        the rank count by repeats of entity 0 and cut into equal chunks,
+        chunk r on rank r; the ownership and ghosts from the union of
+        every term's row and column lists (interior facets: side 0 then
+        side 1), padded to a common width by repeating their first
+        column.  `views` holds this rank's (term view, mask) of each term,
+        in its block's order; `set_elements` takes the masked blocks
+        assembled on them (a padded entity's block is zero, its dofs stay
+        in the layout)."""
+        op = cls.__new__(cls)
+        ndev = mesh.size
+        data, maps, parts = [], [], []
+        for t in terms:
+            cents = (_host(t.cent0) if hasattr(t, "cent0")
+                     else _host(t.coords0).mean(axis=1))
+            order = np.argsort(native.rcb_partition(
+                np.asarray(cents, np.float64), ndev), kind="stable")
+            d = _shard_term_data(t, ndev, order)
+            sides = ("0", "1") if hasattr(d, "dofs1") else ("0",)
+            rows, cols = (np.concatenate([getattr(d, f"dofs{k}")[name]
+                                          for k in sides], axis=1)
+                          for name in ("__test__", wrt))
+            data.append(d)
+            maps.append((rows, cols))
+            parts.append(np.repeat(np.arange(ndev), len(rows) // ndev))
+        W = max(r.shape[1] + c.shape[1] for r, c in maps)
+        combined = []
+        for r, c in maps:
+            rc = np.concatenate([r, c], axis=1)
+            combined.append(np.concatenate(
+                [rc, np.repeat(rc[:, :1], W - rc.shape[1], axis=1)], axis=1))
+        op._setup(np.concatenate(combined), n_dofs, np.concatenate(parts),
+                  mesh, free)
+        chunks = []
+        for r, c in maps:
+            ce = len(r) // ndev
+            sl = slice(mesh.rank * ce, (mesh.rank + 1) * ce)
+            chunks.append((r[sl], c[sl]))
+        op._set_maps(chunks)
+        op.views = [_rank_view(t, d, mesh) for t, d in zip(terms, data)]
+        return op
+
+    def _setup(self, dofmap, n_dofs, part, mesh, free):
+        """The layout from the entity partition `part` of `dofmap` (rows
+        of each entity), this rank's entities (`cells`, increasing) and
+        ghosts, the exchange tables and the owned free mask."""
         size, rank, dev = mesh.size, mesh.rank, mesh.device
         self.mesh = mesh
         self.n = int(n_dofs)
-        lay = build_halo_layout(rows, self.n, part, size)
+        lay = build_halo_layout(dofmap, self.n, part, size)
         self.layout = lay
         L, G, S = lay.L, lay.G, lay.S
         self.n_local = L + G
+        self.collectives = dict(exchanges=0, all_reduces=0)
 
-        # this rank's elements, indexed by local slots: owned dofs ->
-        # [0, L), ghosts -> L + their place in the sorted ghost list
         sel = np.nonzero(part == rank)[0]
         self.cells = sel
-        dofs = np.unique(rows[sel].reshape(-1))
+        dofs = np.unique(dofmap[sel].reshape(-1))
         self.ghosts = dofs[lay.owner_of[dofs] != rank]
-        self.local_rows = self._to_local(rows[sel]).astype(np.int64)
-        self.local_cols = self._to_local(cols[sel]).astype(np.int64)
-        self._local_pattern = None
-        self.local = None
-        self.n_elements = len(sel)
+        # every rank's ghost count (the JAX halo Newton's info["ghosts"])
+        self.ghost_counts = np.array([np.count_nonzero(lay.owner_of[
+            np.unique(dofmap[part == d])] != d) for d in range(size)])
 
         def ti(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=dev)
@@ -222,6 +286,19 @@ class HaloShardedOperator:
             self.scatter_vector(np.asarray(_host(free), float)) > 0.5
         self._diag = None
 
+    def _set_maps(self, blocks):
+        """This rank's element blocks as (rows, cols) of global dof ids,
+        indexed by local slots: owned dofs -> [0, L), ghosts -> L + their
+        place in the sorted ghost list.  `local_rows` / `local_cols` are
+        the first block's."""
+        self.block_maps = [(self._to_local(r).astype(np.int64),
+                            self._to_local(c).astype(np.int64))
+                           for r, c in blocks]
+        self.local_rows, self.local_cols = self.block_maps[0]
+        self.n_elements = sum(len(r) for r, _ in self.block_maps)
+        self._local_pattern = None
+        self.local = None
+
     def _to_local(self, gdofs) -> np.ndarray:
         """Global dof ids (host, any shape) of this rank's cells -> its
         local slots: owned -> the owned slot, ghost -> L + ghost index."""
@@ -230,20 +307,29 @@ class HaloShardedOperator:
         return np.where(own, lay.local_of[gdofs],
                         lay.L + np.searchsorted(self.ghosts, gdofs))
 
-    def set_elements(self, A_local: torch.Tensor):
-        """This rank's element blocks (n_elements, nr, nc), in the order of
-        `cells`: the values of every later product.  K4's plan and the
-        diagonal's owner table are built once and kept across values."""
+    def set_elements(self, A_local):
+        """This rank's element values, the values of every later product:
+        one (elements, nr, nc) tensor per block (a list; a tensor alone for
+        a one-block operator), in the order of `cells` (`from_terms`: of
+        each term's view).  K4's plan of each block and the diagonal's
+        owner table are built once and kept across values."""
+        As = [A_local] if isinstance(A_local, torch.Tensor) else list(A_local)
+        if len(As) != len(self.block_maps):
+            raise ValueError(f"{len(As)} element blocks for an operator of "
+                             f"{len(self.block_maps)}")
         n = self.n_local
         if self._local_pattern is None:
             dev = self.mesh.device
-            rows = torch.as_tensor(self.local_rows, device=dev)
-            cols = torch.as_tensor(self.local_cols, device=dev)
-            self._local_pattern = (rows, cols,
-                                   ElementSpMVPlan(rows, cols, n, n), {})
-        rows, cols, plan, cache = self._local_pattern
-        self.local = ElementMatrix([MatBlock(A_local, rows, cols, plan)], n,
-                                   n, cache=cache)
+            pats = []
+            for r, c in self.block_maps:
+                rows = torch.as_tensor(r, device=dev)
+                cols = torch.as_tensor(c, device=dev)
+                pats.append((rows, cols, ElementSpMVPlan(rows, cols, n, n)))
+            self._local_pattern = (pats, {})
+        pats, cache = self._local_pattern
+        self.local = ElementMatrix(
+            [MatBlock(A, rows, cols, plan)
+             for A, (rows, cols, plan) in zip(As, pats)], n, n, cache=cache)
         self._diag = None
 
     # -- vector scatter/gather ------------------------------------------------
@@ -260,8 +346,14 @@ class HaloShardedOperator:
         (one all-reduce of the disjoint parts: exact)."""
         out = xl.new_zeros(self.n)
         out[self._owned] = xl[: len(self._owned)]
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.mesh.group)
-        return out
+        return self.all_reduce(out)
+
+    def all_reduce(self, t) -> torch.Tensor:
+        """t summed over the ranks (in place; one collective), the same on
+        every rank."""
+        self.collectives["all_reduces"] += 1
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.mesh.group)
+        return t
 
     # -- halo exchanges -------------------------------------------------------
     def _exchange(self, send, sums=None):
@@ -269,6 +361,7 @@ class HaloShardedOperator:
         `sums`, this rank's (k,) partial sums ride along to every rank:
         (recv, their totals over the ranks, summed in rank order, the
         same on every rank)."""
+        self.collectives["exchanges"] += 1
         if sums is None:
             recv = torch.empty_like(send)
             dist.all_to_all_single(recv, send, group=self.mesh.group)
@@ -298,38 +391,52 @@ class HaloShardedOperator:
             return self._rev_table.sum(out)
         return self._rev_table.sum(out[0]), out[1]
 
-    def local_matvec(self, x_own) -> torch.Tensor:
-        """Forward halo, K4 on the rank's elements (its plain version on
-        CPU tensors), reverse halo."""
+    def local_matvec(self, x_own, transpose=False) -> torch.Tensor:
+        """Forward halo, K4 (transpose: K4T) on the rank's element blocks
+        (the plain versions on CPU tensors), reverse halo.  The transpose
+        gathers at the row maps and scatters at the column maps, both
+        local slots, so the same two exchanges serve it."""
         L = self.layout.L
         x_loc = torch.cat([x_own, self.fwd_halo(x_own)])
-        y_loc = self.local.matvec(x_loc)
+        y_loc = (self.local.rmatvec if transpose
+                 else self.local.matvec)(x_loc)
         return y_loc[:L] + self.rev_halo(y_loc[L:])
 
-    def matvec(self, xl) -> torch.Tensor:
-        """The sharded matvec; with BCs the constrained operator P A P +
-        (I - P) (zero rows and columns, unit diagonal)."""
+    def matvec(self, xl, transpose=False) -> torch.Tensor:
+        """The sharded matvec (transpose: with A^T); with BCs the
+        constrained operator P A P + (I - P) (zero rows and columns, unit
+        diagonal), whose transpose is P A^T P + (I - P)."""
         if self.free_l is None:
-            return self.local_matvec(xl)
-        y = self.local_matvec(torch.where(self.free_l, xl, 0.0))
+            return self.local_matvec(xl, transpose)
+        y = self.local_matvec(torch.where(self.free_l, xl, 0.0), transpose)
         return torch.where(self.free_l, y, xl)
 
     def dot(self, xl, yl) -> torch.Tensor:
         """The global dot product: one all-reduce of the rank's partial
         dot over its owned slots."""
-        d = torch.dot(xl, yl).reshape(1)
-        dist.all_reduce(d, op=dist.ReduceOp.SUM, group=self.mesh.group)
-        return d[0]
+        return self.all_reduce(torch.dot(xl, yl).reshape(1))[0]
 
     # -- diagonal (local Jacobi preconditioning) -----------------------------
     def diagonal(self) -> torch.Tensor:
-        """Owned-slot diagonal of the constrained operator, (L,): the
-        rank's element diagonal, its ghost partials sent to their owners;
-        exact zeros and constrained or padding slots -> 1.  Kept after
-        the first call."""
+        """Owned-slot diagonal of the constrained operator, (L,): each
+        block's entries whose row and column are one local slot (the JAX
+        halo Newton's rule, which also takes an interior facet's two
+        copies of a shared dof), summed per slot, the ghost partials sent
+        to their owners; exact zeros and constrained or padding slots ->
+        1.  The same for A^T.  Kept after the first call."""
         if self._diag is None:
             L = self.layout.L
-            d_loc = self.local.diagonal()
+            blocks = self.local.blocks
+            cache = self._local_pattern[1]
+            if "halo_diagonal" not in cache:
+                cache["halo_diagonal"] = OwnerTable(
+                    np.concatenate([r.reshape(-1)
+                                    for r, _ in self.block_maps]),
+                    sum(r.size for r, _ in self.block_maps), self.n_local,
+                    device=self.mesh.device)
+            d_loc = cache["halo_diagonal"].sum(torch.cat([
+                (b.A * (b.rows[:, :, None] == b.cols[:, None, :])).sum(
+                    dim=2).reshape(-1) for b in blocks]))
             d = d_loc[:L] + self.rev_halo(d_loc[L:])
             d = torch.where(torch.abs(d) < 1e-30, 1.0, d)
             if self.free_l is not None:
@@ -338,9 +445,12 @@ class HaloShardedOperator:
         return self._diag
 
     # -- distributed CG -------------------------------------------------------
-    def cg(self, bl, rtol=1e-10, maxiter=2000, jacobi=True, precond=None):
+    def cg(self, bl, rtol=1e-10, maxiter=2000, jacobi=True, precond=None,
+           transpose=False):
         """Preconditioned CG on sharded vectors: (x (L,), iterations, ||r||
-        as a tensor).  The preconditioner is rank-local: `precond`, a
+        as a tensor); transpose: on A^T, its products K4T (the IFT
+        adjoint of a symmetric Jacobian, as the JAX halo Newton runs
+        it).  The preconditioner is rank-local: `precond`, a
         callable r -> z on owned slots, when it is given (the halo steps'
         block Jacobi and Chebyshev), else the owned diagonal (jacobi=True)
         or none.  Each iteration is one matvec and one preconditioner
@@ -368,7 +478,8 @@ class HaloShardedOperator:
         def matvec_dot(p, pg):
             """(A p, p.A p) from p and the ghost copies pg of masked(p)."""
             x_loc = torch.cat([masked(p), pg])
-            y_loc = self.local.matvec(x_loc)
+            y_loc = (self.local.rmatvec if transpose
+                     else self.local.matvec)(x_loc)
             part = torch.dot(x_loc, y_loc)
             if free is not None:  # the unit rows of constrained slots
                 pc = torch.where(free, 0.0, p)
@@ -384,7 +495,7 @@ class HaloShardedOperator:
                 [torch.dot(a, b) for a, b in ((r, z), (r, r)) + more]))
 
         x = torch.zeros_like(bl)
-        r = bl - self.matvec(x)
+        r = bl - self.matvec(x, transpose)
         z = precond(r)
         pg, (rz, rr, b2) = direction(r, z, (bl, bl))
         p = z
@@ -403,3 +514,97 @@ class HaloShardedOperator:
             rz = rz_new
             k += 1
         return x, k, torch.sqrt(rr)
+
+    # -- distributed restarted GMRES ------------------------------------------
+    def gmres(self, bl, rtol=1e-12, maxiter=20000, restart=50,
+              transpose=False):
+        """Restarted GMRES(m), m = min(restart, maxiter), on sharded
+        vectors, right-preconditioned by the point Jacobi (`diagonal`):
+        (x (L,), cycles, ||b - A x|| as a float); transpose: on A^T (K4T).
+
+        The JAX package's halo GMRES (femo_tpu/parallel/halo_newton.py:
+        262-331) step for step: from x = 0, while the true residual norm
+        exceeds max(rtol ||b||, eps) and fewer than ceil(maxiter / m)
+        cycles ran, a cycle restarts from r = b - A x, runs all m Arnoldi
+        steps on w = A (v_j / d), Givens-rotates each Hessenberg column,
+        solves the triangle (a zero pivot taken as 1), updates x and
+        recomputes the true residual.  So a solve makes 1 + cycles (m + 2)
+        products, K4 (K4T) once per element block each.
+
+        Departure: the Arnoldi step orthogonalizes by classical Gram-
+        Schmidt with one reorthogonalization (CGS2), where the JAX
+        package's modified Gram-Schmidt psums each of its m dots in turn.
+        Pass 1 sends the j + 1 partial dots V_{0..j} . w in one
+        all-reduce and subtracts; pass 2 sends the j + 1 dots again with
+        ||w||^2 in a second all-reduce and subtracts the correction, and
+        the new norm is sqrt(||w||^2 - ||h_2||^2) (V orthonormal; floored
+        at 0).  An Arnoldi step therefore makes 4 collectives whatever j
+        and m: the product's 2 halo exchanges and 2 all-reduces.  A cycle
+        adds 2 products and 2 all-reduces (the norms of its first and last
+        residual), the start 1 product and 1 all-reduce (||b||^2 with
+        ||r_0||^2).  Same Krylov space, other rounding: cycle counts may
+        differ by a cycle where a solve ends near a cycle's end.  The
+        Hessenberg columns, rotations and stopping test are computed on
+        the host from the all-reduced sums, the same numbers on every
+        rank, so every rank takes the same branch and leaves together."""
+        Minv = 1.0 / self.diagonal()
+        L = self.layout.L
+        m = int(min(restart, maxiter))
+        eps = torch.finfo(bl.dtype).tiny * 1e3
+        n_cycles = max(1, -(-int(maxiter) // m))
+
+        def A(v):
+            return self.matvec(v, transpose)
+
+        def norm(v):
+            return math.sqrt(float(self.dot(v, v)))
+
+        r0 = bl - A(torch.zeros_like(bl))
+        b2, r2 = self.all_reduce(torch.stack([torch.dot(bl, bl),
+                                              torch.dot(r0, r0)])).tolist()
+        tol = max(rtol * math.sqrt(b2), eps)
+        rn, k = math.sqrt(r2), 0
+        x = torch.zeros_like(bl)
+        V = bl.new_zeros(m + 1, L)
+        while rn > tol and k < n_cycles:
+            r = bl - A(x)
+            beta = norm(r)
+            V.zero_()
+            V[0] = r / max(beta, eps)
+            H = np.zeros((m, m))
+            cs, sn = np.ones(m), np.zeros(m)
+            g = np.zeros(m + 1)
+            g[0] = beta
+            for j in range(m):
+                w = A(V[j] * Minv)
+                Vj = V[: j + 1]
+                h = self.all_reduce(Vj @ w)
+                w = w - h @ Vj
+                s = self.all_reduce(torch.cat([Vj @ w,
+                                               torch.dot(w, w).reshape(1)]))
+                h2 = s[: j + 1]
+                w = w - h2 @ Vj
+                col = torch.cat([h + h2, (s[j + 1] - torch.dot(h2, h2))
+                                 .reshape(1)]).tolist()
+                hcol = np.zeros(m + 1)
+                hcol[: j + 1] = col[: j + 1]
+                hcol[j + 1] = math.sqrt(max(col[j + 1], 0.0))
+                V[j + 1] = w / max(hcol[j + 1], eps)
+                for i in range(j):
+                    t1 = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                    t2 = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                    hcol[i], hcol[i + 1] = t1, t2
+                d = math.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+                cs[j] = hcol[j] / max(d, eps)
+                sn[j] = hcol[j + 1] / max(d, eps)
+                g[j + 1] = -sn[j] * g[j]
+                g[j] = cs[j] * g[j]
+                hcol[j], hcol[j + 1] = d, 0.0
+                H[:, j] = hcol[:m]
+            Hd = H + np.diag((np.abs(np.diag(H)) < eps).astype(float))
+            y = scipy.linalg.solve_triangular(Hd, g[:m], lower=False)
+            x = x + (torch.as_tensor(y, dtype=bl.dtype, device=bl.device)
+                     @ V[:m]) * Minv
+            rn = norm(bl - A(x))
+            k += 1
+        return x, k, rn

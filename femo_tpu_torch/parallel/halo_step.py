@@ -279,9 +279,7 @@ class HaloShellCore:
         comp, part = composite_partition(ucf, tcf, off, mesh.size)
         self.op = HaloShardedOperator.from_cells(comp, n, part, mesh,
                                                  free=state.free)
-        self.ghosts = np.array([
-            np.count_nonzero(self.op.layout.owner_of[np.unique(
-                comp[part == d])] != d) for d in range(mesh.size)])
+        self.ghosts = self.op.ghost_counts
         self.bjacobi = None
         if precond == "bjacobi":
             self.bjacobi = BlockJacobi(self.op, comp, part,

@@ -127,6 +127,12 @@ def _rank_term(term: _Term, mesh: RankMesh) -> tuple[_Term, torch.Tensor]:
     """(view, mask): the term restricted to this rank's slice of its
     padded, RCB-ordered entities, and the slice's mask."""
     d = _shard_term_data(term, mesh.size, _entity_order(term, mesh.size))
+    return _rank_view(term, d, mesh)
+
+
+def _rank_view(term: _Term, d, mesh: RankMesh) -> tuple[_Term, torch.Tensor]:
+    """(view, mask) of this rank's slice of `d`, the term's padded data
+    (`_shard_term_data`)."""
     per = d.mask.shape[0] // mesh.size
     sl = slice(mesh.rank * per, (mesh.rank + 1) * per)
     view = copy.copy(term)

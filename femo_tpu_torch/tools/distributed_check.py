@@ -1,18 +1,26 @@
 """The distributed paths on the card: one pool of ranks runs mode b (the
 dof-sharded halo CG of run_distributed_poisson.py, with K4 inside each
-rank), mode a (the cells-sharded Poisson, motor and shell steps), and
-mode b inside the workload steps (parallel/halo_step.py: the W6 shell
-halo step at full width with block Jacobi, K1/K2 and K4 in each rank;
-the shell steps at (3, 4) and the FSI halo step), and returns what
+rank), mode a (the cells-sharded Poisson, motor and shell steps), mode b
+inside the workload steps (parallel/halo_step.py: the W6 shell halo step
+at full width with block Jacobi, K1/K2 and K4 in each rank; the shell
+steps at (3, 4) and the FSI halo step) and inside the motor step
+(parallel/halo_newton.py: halo GMRES and CG, K4/K4T in each rank), and
+returns what
 chip_smoke.py's `distributed` phase holds against the JAX package's
 values.
 
     python -m femo_tpu_torch.tools.distributed_check [--ranks 4]
     python -m femo_tpu_torch.tools.distributed_check --halo-step-only
+    python -m femo_tpu_torch.tools.distributed_check --motor-halo-only
+    python -m femo_tpu_torch.tools.distributed_check --motor-probe 20000
 
 runs chip_smoke.py's configuration on the card (the second: only the
-full-width shell halo step) and prints each rank's results as JSON
-(arrays left out); chip_smoke.py calls `run` and does the gates.  The
+full-width shell halo step; the third: only the motor halo step of
+parallel/halo_newton.py at bench.py's refine-1 motor, then the
+single-device dense-LU step in this process beside it; the fourth: each
+motor state's first Newton system at refine 4, solved once) and prints
+each rank's results as JSON (arrays left out); `--device cpu` runs the
+ranks on the CPU.  chip_smoke.py calls `run` and does the gates.  The
 ranks share the card through gloo when there are more ranks than cards
 (parallel/launch.py).
 """
@@ -28,14 +36,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import get_device
+from ..config import config, get_device
 from ..fea import (
     DirichletBC, FormDef, Function, FunctionSpace, assemble_matrix,
     bc_arrays, create_unit_square_mesh, dot, dx, grad)
 from ..ops import bt_sweeps, spmv
 from ..parallel.halo import HaloShardedOperator
 from ..parallel.launch import spawn
-from ..parallel.sharding import RankMesh
+from ..parallel.sharding import RankMesh, sharded_vector_fn
 
 # repeats of each piece of a CG iteration in the split of its time
 SPLIT_REPS = 50
@@ -48,6 +56,14 @@ MOTOR_CFG = dict(em_load_steps=3, mm_newton_iters=3, em_newton_iters=3,
 # shell oracle entry a (span 4, chord 1, E, nu, thickness, pressure, clamp)
 HALO_STEP = dict(n_shell=(24, 400), span=4.0, precond="bjacobi",
                  cg_rtol=1e-8, cg_maxiter=60000)
+# mode b inside the motor step (parallel/halo_newton.py): bench.py's
+# refine-1 motor (bench.py:70-87: 3 EM load steps, edge deltas) with 6
+# Newton iterations a load step, where both states have converged, so
+# its gradient is comparable with the single-device step's
+MOTOR_HALO = dict(refine=1, design_space="edge_deltas", em_load_steps=3,
+                  mm_newton_iters=6, em_newton_iters=6)
+# the probe past it: each state's first Newton system at refine 4
+MOTOR_PROBE = dict(refine=4, design_space="edge_deltas", em_load_steps=3)
 # the steps at (3, 4) held against the JAX package's values (oracles/
 # distributed_oracle.npz shell34_halo_*, fsi34_halo_*): key -> the step's
 # arguments; "bjacobi" and "fsi" are entry._dryrun_halo_steps'
@@ -371,15 +387,199 @@ def halo_step_rank(mesh, cfg):
     return out
 
 
+def count_halo_solves(mesh, op, kind, log):
+    """Wrap a halo Newton operator's Krylov method (`op.cg` or
+    `op.gmres`, an instance attribute over the method): each solve has K4
+    and K4T set to 0 just before it and read just after, with its
+    direction, count (CG iterations or GMRES cycles), collectives and
+    synced seconds, appended to `log`."""
+    solve = getattr(op, kind)
+
+    def counted(b, *args, transpose=False, **kw):
+        _sync(mesh)
+        spmv.launches.update(K4=0, K4T=0)
+        before = dict(op.collectives)
+        t0 = time.perf_counter()
+        out = solve(b, *args, transpose=transpose, **kw)
+        _sync(mesh)
+        log.append(dict(kind=kind, transpose=transpose, count=out[1],
+                        seconds=time.perf_counter() - t0,
+                        K4=spmv.launches["K4"], K4T=spmv.launches["K4T"],
+                        **{k: op.collectives[k] - before[k]
+                           for k in before}))
+        return out
+
+    setattr(op, kind, counted)
+
+
+def time_assembly(mesh, op, log):
+    """Wrap each of a halo Newton operator's term views' matrix_blocks:
+    the synced seconds of each call appended to `log`."""
+    for view, _ in op.views:
+        blocks = view.matrix_blocks
+
+        def timed(*args, _blocks=blocks, **kw):
+            _sync(mesh)
+            t0 = time.perf_counter()
+            out = _blocks(*args, **kw)
+            _sync(mesh)
+            log.append(time.perf_counter() - t0)
+            return out
+
+        view.matrix_blocks = timed
+
+
+def element_vs_plain(op, seed):
+    """K4 and K4T against their plain versions on each of the rank's
+    element blocks (not counted on a path): per block its shape and, per
+    kernel, (max abs error, max abs of the plain product)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in op.local.blocks:
+        n = op.n_local
+        x = torch.as_tensor(rng.standard_normal(n), dtype=b.A.dtype,
+                            device=b.A.device)
+        row = dict(shape=tuple(b.A.shape))
+        for k, kern, plain in (
+                ("K4", spmv.element_spmv_cuda, spmv.element_spmv_plain),
+                ("K4T", spmv.element_rspmv_cuda, spmv.element_rspmv_plain)):
+            y = kern(b.A, b.plan, x)
+            y_p = plain(b.A, b.rows, b.cols, x, n)
+            row[k] = (float((y - y_p).abs().max()), float(y_p.abs().max()))
+        out.append(row)
+    return out
+
+
+def halo_split_ms(mesh, op, transpose=False):
+    """The pieces of one Arnoldi step and one CG iteration on a halo
+    Newton operator (a call each, synced, SPLIT_REPS of them): the two
+    exchanges (CG's with the partial dots they carry), the local product
+    (K4, or K4T), the orthogonalization's two all-reduces at the average
+    Arnoldi index (25 and 26 dots of GMRES(50)) and the whole
+    constrained product."""
+    L, G = op.layout.L, op.layout.G
+    x = torch.ones(L, dtype=config.dtype, device=mesh.device)
+    gh = torch.zeros(G, dtype=x.dtype, device=mesh.device)
+    x_loc = torch.cat([x, op.fwd_halo(x)])
+    prod = op.local.rmatvec if transpose else op.local.matvec
+    h1, h2 = x.new_zeros(25), x.new_zeros(27)
+    return {
+        "fwd_halo": _per_call_ms(mesh, lambda: op.fwd_halo(x)),
+        "rev_halo": _per_call_ms(mesh, lambda: op.rev_halo(gh)),
+        "fwd_halo_dots": _per_call_ms(mesh, lambda: op.fwd_halo(
+            x, x.new_zeros(2))),
+        "rev_halo_dots": _per_call_ms(mesh, lambda: op.rev_halo(
+            gh, x.new_zeros(1))),
+        "k4t" if transpose else "k4": _per_call_ms(mesh,
+                                                   lambda: prod(x_loc)),
+        "all_reduce_pass1": _per_call_ms(mesh, lambda: op.all_reduce(h1)),
+        "all_reduce_pass2": _per_call_ms(mesh, lambda: op.all_reduce(h2)),
+        "matvec": _per_call_ms(mesh, lambda: op.matvec(x, transpose))}
+
+
+def motor_halo_rank(mesh, cfg):
+    """The motor halo step (cfg: build_motor_halo_step's arguments) on
+    this rank: the layouts and blocks of both states, the step with each
+    Krylov solve counted (count_halo_solves) and each Jacobian assembly
+    timed (time_assembly), loss and gradients; then the split of an
+    Arnoldi step and of a CG iteration (halo_split_ms) and, on the card,
+    K4/K4T against their plain versions on the rank's last blocks of each
+    state and the peak device memory."""
+    from ..parallel.halo_newton import build_motor_halo_step
+
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    (step, (dv0, iq0), info), build_s = _timed(
+        mesh, lambda: build_motor_halo_step(device_mesh=mesh, **cfg))
+    out = dict(rank=mesh.rank, build_s=build_s, n_dv=int(dv0.numel()))
+    logs = {}
+    for key, kind in (("mm", "gmres"), ("em", "cg")):
+        op = info[key]["op"]
+        lay = op.layout
+        out[key] = dict(n_dofs=op.n, L=lay.L, G=lay.G, S=lay.S,
+                        n_owned=int(lay.n_owned[mesh.rank]),
+                        n_ghosts=len(op.ghosts),
+                        blocks=[tuple(r.shape) + (c.shape[1],)
+                                for r, c in op.block_maps])
+        logs[key] = ([], [])
+        count_halo_solves(mesh, op, kind, logs[key][0])
+        time_assembly(mesh, op, logs[key][1])
+    (loss, (g_dv, g_iq)), out["step_s"] = _timed(mesh,
+                                                  lambda: step(dv0, iq0))
+    out.update(loss=float(loss), g_dv=_host(g_dv), g_iq=float(g_iq))
+    for key in ("mm", "em"):
+        op = info[key]["op"]
+        out[key].update(solves=logs[key][0], assembly_s=logs[key][1])
+        out[key]["split_ms"] = halo_split_ms(mesh, op)
+        out[key]["split_t_ms"] = halo_split_ms(mesh, op, transpose=True)
+        if cuda:
+            out[key]["kernels"] = element_vs_plain(op, 400 + mesh.rank)
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated(mesh.device) / 2**30
+    dist.barrier()
+    return out
+
+
+def motor_probe_rank(mesh, cfg, maxiter):
+    """Each state's first Newton system of the motor halo step at cfg
+    (refine 4: bench.py's refine-4 motor), solved once on this rank:
+    mesh motion by halo GMRES at u = 0 and half the interface
+    displacement (its first load step), EM by halo CG at A_z = 0 on the
+    undeformed mesh (uhat = 0: the mesh-motion solve need not converge)
+    with the first load step's tables; each solve's count, collectives,
+    synced seconds and the true relative residual of its gathered x
+    (against the constrained Jacobian by halo_apply).  maxiter: the
+    solves' cg_maxiter."""
+    from ..fea.bc import constrain_residual
+    from ..models.motor.model import em_scale, em_vals, mm_vals, motor_problem
+    from ..models.motor.pde import source_tables
+    from ..parallel.halo_newton import build_halo_newton_solver
+
+    dev, f = mesh.device, config.dtype
+    mp, build_s = _timed(mesh, lambda: motor_problem(
+        cfg["refine"], None, cfg["design_space"], dev))
+    out = dict(rank=mesh.rank, build_s=build_s)
+    iq0 = torch.as_tensor(1e5, dtype=f, device=dev)
+    Ht, Jt = source_tables(iq0, torch.zeros((), dtype=f, device=dev))
+    zeros_mm = torch.zeros(mp.Vmm.n_dofs, dtype=f, device=dev)
+    zeros_em = torch.zeros(mp.Vem.n_dofs, dtype=f, device=dev)
+    systems = (
+        ("mm", "uhat", "gmres", mp.mm_cf, mp.free_mm, mp.bv_mm, mm_vals,
+         mm_vals(zeros_mm, {"uhat_bc": 0.5 * mp.to_bc(mp.dv0)})),
+        ("em", "A_z", "cg", mp.em_cf, mp.free_em, mp.bv_em, em_vals,
+         em_vals(zeros_em, em_scale({"uhat": zeros_mm, "Htable": Ht,
+                                     "Jtable": Jt},
+                                    1.0 / cfg["em_load_steps"]))))
+    for key, state, kind, cf, free, bv, vals_of, vals in systems:
+        _, aux = build_halo_newton_solver(cf, state, free, bv, mesh,
+                                          vals_of=vals_of, krylov=kind,
+                                          cg_maxiter=maxiter)
+        with torch.no_grad():
+            b = -constrain_residual(sharded_vector_fn(cf, mesh)(vals),
+                                    vals[state], free, bv)
+        log = []
+        count_halo_solves(mesh, aux["op"], kind, log)
+        x, _ = aux["halo_cg"](vals, b)
+        r = b - aux["halo_apply"](vals, x)
+        out[key] = dict(n_dofs=aux["op"].n, L=aux["op"].layout.L,
+                        G=aux["op"].layout.G, solve=log[0], maxiter=maxiter,
+                        true_residual=float(torch.linalg.norm(r)
+                                            / torch.linalg.norm(b)))
+    dist.barrier()
+    return out
+
+
 def small_steps_rank(mesh):
     """The steps at (3, 4) against the JAX package's values: the dryrun's
-    two mode-b lines (the shell halo step with block Jacobi beside the
-    unsharded step, the FSI halo step with block Jacobi), with K1, K2 and
-    K4 set to 0 just before and read just after, and every CG's
-    iterations; then the shell halo step with each SMALL_STEPS
+    two mode-b step lines (the shell halo step with block Jacobi beside
+    the unsharded step, the FSI halo step with block Jacobi), with K1, K2
+    and K4 set to 0 just before and read just after, and every CG's
+    iterations; the dryrun's motor line (K4 and K4T counted, each
+    state's Krylov counts); then the shell halo step with each SMALL_STEPS
     preconditioner, each solve counted (count_solves; the Chebyshev
     power iterations' K4 launches fall outside the solves)."""
-    from ..entry import _dryrun_halo_steps
+    from ..entry import _dryrun_halo_steps, _dryrun_motor_halo
     from ..parallel.halo_step import build_shell_halo_step
 
     _sync(mesh)
@@ -389,6 +589,16 @@ def small_steps_rank(mesh):
            "dryrun_iterations": [
                list(vals[f"{k}_core"]["core"].iterations)
                for k in ("shell", "fsi")]}
+    # the dryrun's motor line (refine 0.5, n2), K4 and K4T counted
+    _sync(mesh)
+    spmv.launches.update(K4=0, K4T=0)
+    (mlines, mvals), t = _timed(mesh, lambda: _dryrun_motor_halo(mesh))
+    out["motor_dryrun"] = dict(
+        lines=mlines, seconds=t, K4=spmv.launches["K4"],
+        K4T=spmv.launches["K4T"], loss=mvals["halo"][0],
+        single_loss=mvals["single"][0],
+        **{f"{k}_counts": list(mvals["info"][k]["counts"])
+           for k in ("mm", "em")})
     for key in ("shell", "fsi"):
         out[key] = dict(J=vals[key][0], g=vals[key][1])
     for key, kw in SMALL_STEPS.items():
@@ -458,16 +668,19 @@ def iteration_spread_rank(mesh):
 
 
 def chip_rank(mesh, nel, rtol, poisson_nel, motor_refine, shell_shape,
-              halo_step):
+              halo_step, motor_halo):
     """One rank of chip_smoke.py's `distributed` phase: mode b, mode a,
     the full-width shell halo step (`halo_step`: its arguments), the
-    steps at (3, 4), with the seconds of each."""
+    steps at (3, 4) with the dryrun, the motor halo step (`motor_halo`:
+    its arguments), with the seconds of each."""
     out = {}
     for key, fn in (("halo", lambda: halo_rank(mesh, nel, rtol)),
                     ("mode_a", lambda: mode_a_rank(
                         mesh, poisson_nel, motor_refine, shell_shape)),
                     ("halo_step", lambda: halo_step_rank(mesh, halo_step)),
-                    ("small_steps", lambda: small_steps_rank(mesh))):
+                    ("small_steps", lambda: small_steps_rank(mesh)),
+                    ("motor_halo", lambda: motor_halo_rank(mesh,
+                                                           motor_halo))):
         t0 = time.perf_counter()
         out[key] = fn()
         out[f"{key}_s"] = time.perf_counter() - t0
@@ -475,17 +688,40 @@ def chip_rank(mesh, nel, rtol, poisson_nel, motor_refine, shell_shape,
 
 
 def run(ranks=4, nel=260, rtol=1e-8, poisson_nel=260, motor_refine=1,
-        shell_shape=(3, 4), halo_step=None, device=None, timeout=900.0):
+        shell_shape=(3, 4), halo_step=None, motor_halo=None, device=None,
+        timeout=900.0):
     """chip_rank on `ranks` ranks (on the card by default); the list of
-    their results, rank 0 first.  halo_step: the full-width shell halo
-    step's arguments (None: HALO_STEP).  On the card, K1/K2's and K4's
-    libraries are built here first, not by the ranks at once."""
+    their results, rank 0 first.  halo_step, motor_halo: the full-width
+    shell halo step's and the motor halo step's arguments (None:
+    HALO_STEP, MOTOR_HALO).  On the card, K1/K2's and K4's libraries are
+    built here first, not by the ranks at once."""
     if get_device(device).type == "cuda":
         spmv.get_lib()
         bt_sweeps.get_lib()
     return spawn(chip_rank, ranks, device=device, timeout=timeout,
                  args=(nel, rtol, poisson_nel, motor_refine,
-                       tuple(shell_shape), dict(halo_step or HALO_STEP)))
+                       tuple(shell_shape), dict(halo_step or HALO_STEP),
+                       dict(motor_halo or MOTOR_HALO)))
+
+
+def run_motor_halo(ranks=4, motor_halo=None, device=None, timeout=900.0):
+    """motor_halo_rank alone on `ranks` ranks: the list of their
+    results."""
+    if get_device(device).type == "cuda":
+        spmv.get_lib()
+    return spawn(motor_halo_rank, ranks, device=device, timeout=timeout,
+                 args=(dict(motor_halo or MOTOR_HALO),))
+
+
+def motor_single(cfg, device=None):
+    """The port's single-device dense-LU motor step at cfg, in this
+    process: (loss, g_dv, g_iq) as numpy."""
+    from ..models.motor.model import build_motor_jit_step
+
+    step, (dv0, iq0), _ = build_motor_jit_step(device=device,
+                                               factorization="lu", **cfg)
+    loss, (g_dv, g_iq) = step(dv0, iq0)
+    return float(loss), _host(g_dv), float(g_iq)
 
 
 def run_halo_step(ranks=4, halo_step=None, device=None, timeout=900.0):
@@ -512,6 +748,12 @@ def main(argv=None):
     p.add_argument("--ranks", type=int, default=4)
     p.add_argument("--halo-step-only", action="store_true",
                    help="only the full-width shell halo step")
+    p.add_argument("--motor-halo-only", action="store_true",
+                   help="only the motor halo step (MOTOR_HALO), against "
+                        "the single-device dense-LU step in this process")
+    p.add_argument("--motor-probe", type=int, default=None, metavar="MAXITER",
+                   help="only each state's first Newton system at refine 4 "
+                        "(MOTOR_PROBE), cg_maxiter MAXITER")
     p.add_argument("--iteration-spread", action="store_true",
                    help="only the CG iteration spread under one-ulp "
                         "perturbations (iteration_spread_rank)")
@@ -530,8 +772,29 @@ def main(argv=None):
                   f"{its[1:]}, largest change {100 * dev:.1f}%")
         print(f"{time.perf_counter() - t0:.1f} s")
         return res
-    res = (run_halo_step(args.ranks, device=args.device)
-           if args.halo_step_only else run(args.ranks, device=args.device))
+    if args.motor_probe is not None:
+        if get_device(args.device).type == "cuda":
+            spmv.get_lib()
+        res = spawn(motor_probe_rank, args.ranks, device=args.device,
+                    timeout=3000.0, args=(MOTOR_PROBE, args.motor_probe))
+    elif args.motor_halo_only:
+        res = run_motor_halo(args.ranks, device=args.device, timeout=2400.0)
+        (loss, g_dv, g_iq), t = _timed(RankMesh(
+            None, 0, 1, get_device(args.device)), lambda: motor_single(
+                MOTOR_HALO, args.device))
+        r0 = res[0]
+        print(f"single-device dense-LU step ({t:.1f} s): loss rel "
+              f"{abs(r0['loss'] - loss) / abs(loss):.3e}, g_dv rel "
+              f"{np.linalg.norm(r0['g_dv'] - g_dv) / np.linalg.norm(g_dv):.3e}"
+              f", g_iq rel {abs(r0['g_iq'] - g_iq) / abs(g_iq):.3e}; ranks "
+              "equal: " + str(all(
+                  r["loss"] == r0["loss"] and np.array_equal(r["g_dv"],
+                                                             r0["g_dv"])
+                  for r in res)))
+    else:
+        res = (run_halo_step(args.ranks, device=args.device)
+               if args.halo_step_only
+               else run(args.ranks, device=args.device))
     for r in res:
         print(json.dumps(_jsonable(r)))
     print(f"{time.perf_counter() - t0:.1f} s")

@@ -251,3 +251,72 @@ def halo_step_checks(mesh):
                 t0, step_rhs(info, t0))[1]
     out[f"launches{g}"] = (before, dict(spmv.launches, **bt_sweeps.launches))
     return out
+
+
+# tests/test_motor_halo.py's advection-diffusion system: its nel, the
+# advection velocity (the operator is nonsymmetric) and b's seed
+ADVDIFF_NEL = 10
+ADVDIFF_BETA = (3.0, 1.0)
+ADVDIFF_SEED = 3
+
+
+def advdiff_system(nel, device):
+    """(form, free, bc values, V): grad.grad + beta.grad on the nel x nel
+    square, source 1, u = 0 on x = 0."""
+    from femo_tpu_torch.fea import DirichletBC, bc_arrays
+
+    V = FunctionSpace(create_unit_square_mesh(nel), ("CG", 1), device=device)
+    u = Function(V, "u")
+    beta = torch.tensor(ADVDIFF_BETA, dtype=torch.float64, device=device)
+    form = FormDef([dx(lambda w, g: dot(grad(w.u), grad(w.v))
+                       + dot(beta, grad(w.u)) * w.v - 1.0 * w.v)],
+                   coeffs=[u], test=V)
+    free, bv = bc_arrays([DirichletBC(V, 0.0, where=lambda x: np.isclose(
+        x[0], 0))], V.n_dofs, device)
+    return form, free, bv, V
+
+
+def halo_newton_checks(mesh):
+    """Mode b inside the motor step (parallel/halo_newton.py) on 4 ranks:
+    on the advection-diffusion system, the constrained operator's columns
+    (halo_apply), the GMRES solve of b and of the transpose, the Newton
+    solve's free-dof residual; then the dryrun's motor line (the halo
+    step at refine 0.5, n2, beside the single-device step), each state's
+    Krylov counts and layout; the kernel and collective counts."""
+    torch.set_num_threads(1)
+    from femo_tpu_torch.entry import _dryrun_motor_halo
+    from femo_tpu_torch.ops import bt_sweeps, spmv
+    from femo_tpu_torch.parallel.halo_newton import build_halo_newton_solver
+    from femo_tpu_torch.parallel.sharding import sharded_vector_fn
+
+    before = dict(spmv.launches, **bt_sweeps.launches)
+    form, free, bv, V = advdiff_system(ADVDIFF_NEL, mesh.device)
+    cf = compile_form(form)
+    solve, aux = build_halo_newton_solver(
+        cf, "u", free, bv, mesh, vals_of=lambda u, p: {"u": u},
+        newton_iters=1, krylov="gmres", cg_rtol=1e-13)
+    n = V.n_dofs
+    vals = {"u": torch.zeros(n, dtype=torch.float64)}
+    out = {"K": np.stack([_np(aux["halo_apply"](vals, e)) for e in
+                          torch.eye(n, dtype=torch.float64)], axis=1)}
+    b = torch.as_tensor(np.where(_np(free), np.random.default_rng(
+        ADVDIFF_SEED).normal(size=n), 0.0))
+    for key, tr in (("x", False), ("xt", True)):
+        x, k = aux["halo_cg"](vals, b, transpose=tr)
+        out[key], out[f"{key}_cycles"] = _np(x), k
+    u = solve({}, torch.zeros(n, dtype=torch.float64))
+    r = sharded_vector_fn(cf, mesh)({"u": u})
+    out["newton_residual"] = float(torch.linalg.norm(r[free]))
+    out["advdiff_counts"] = list(aux["counts"])
+    out["advdiff_collectives"] = dict(aux["op"].collectives)
+
+    lines, vals = _dryrun_motor_halo(mesh)
+    info = vals["info"]
+    out.update(lines=lines, halo=vals["halo"], single=vals["single"])
+    for key in ("mm", "em"):
+        aux = info[key]
+        out[f"{key}_counts"] = list(aux["counts"])
+        out[f"{key}_layout"] = dict(aux["info"])
+        out[f"{key}_collectives"] = dict(aux["op"].collectives)
+    out["launches"] = (before, dict(spmv.launches, **bt_sweeps.launches))
+    return out
